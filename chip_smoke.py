@@ -12,18 +12,23 @@ the sweep again on the calibrated machine. Phases:
 0. device facts (exits non-zero without a card);
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
 2. every kernel x stencil against its plain torch version on the card
-   (f32 and bf16, ragged shapes, several tiles and bands, 8192^2 and 256^3);
+   (f32 and bf16, ragged shapes, several tiles and bands, 8192^2 and 256^3,
+   and the K1/K2 edge cases of ``EDGE_CASES``, also from an input off the
+   16-byte grid);
 3. analytic codesign at full width, checked tie-aware against the float64
    numpy oracle;
 4. the codesigned tiles run through K1 (2-D) and the one-step kernels
    K3/K4 at their planned band, each checked against plain;
 5. measure -> refit -> calibrated codesign;
-6. kernel times (CUDA events) beside their bound, plain and library times.
+6. kernel times (CUDA events) beside their bound, plain and library times;
+   K1/K2 at every tile of the measurement grid and K1 at the 2-D jacobi
+   optimum, each with its bound share, shared memory and blocks per SM.
 
 The launch counters are set to 0 just before phase 3 and read just after
 phase 5: every kernel must have been launched on the main path. A failed
-check raises; nothing is caught. The line before the last is a JSON
-object of per-kernel numbers, the last line the device record.
+check raises; nothing is caught. The last three lines are a JSON object of
+per-kernel numbers, the card's name and power limit as ``nvidia-smi``
+gives them, and the device record.
 """
 
 from __future__ import annotations
@@ -44,6 +49,24 @@ PEAK_F32_FLOPS = 67e12
 
 NAMES_2D = ("jacobi2d", "heat2d", "laplacian2d", "gradient2d")
 NAMES_3D = ("heat3d", "laplacian3d")
+
+#: (stencil, shape, steps, tiles, dtype) edge cases of K1/K2: t_s1 = 1
+#: strips and t_s1 >= s1, last passes shorter than t_t, windows clipped at
+#: both ends of an axis, 1024 threads for windows wider than 1024, widths
+#: that are not multiples of 4 (unaligned row heads and tails), bf16 in 3-D
+EDGE_CASES = (
+    ("jacobi2d", (45, 131), 5, {"t_s1": 1, "t_s2": 32, "t_t": 2}, "f32"),
+    ("heat2d", (37, 53), 7, {"t_s1": 64, "t_s2": 64, "t_t": 3}, "f32"),
+    ("gradient2d", (40, 2100), 3, {"t_s1": 4, "t_s2": 1024, "t_t": 2}, "f32"),
+    ("laplacian2d", (33, 1030), 4, {"t_s1": 8, "t_s2": 1024, "t_t": 3}, "f32"),
+    ("heat2d", (29, 1027), 3, {"t_s1": 16, "t_s2": 1024, "t_t": 2}, "bf16"),
+    ("heat3d", (9, 21, 23), 5, {"t_s1": 1, "t_s2": 32, "t_t": 2, "t_s3": 4}, "f32"),
+    ("laplacian3d", (11, 13, 17), 5, {"t_s1": 16, "t_s2": 32, "t_t": 3, "t_s3": 32}, "f32"),
+    ("heat3d", (20, 70, 37), 6, {"t_s1": 8, "t_s2": 64, "t_t": 4, "t_s3": 8}, "f32"),
+    ("heat3d", (6, 1030, 7), 2, {"t_s1": 2, "t_s2": 1024, "t_t": 2, "t_s3": 2}, "f32"),
+    ("laplacian3d", (17, 9, 33), 3, {"t_s1": 4, "t_s2": 32, "t_t": 2, "t_s3": 8}, "bf16"),
+    ("heat3d", (12, 40, 30), 5, {"t_s1": 3, "t_s2": 16, "t_t": 3, "t_s3": 5}, "bf16"),
+)
 
 
 def say(*parts) -> None:
@@ -200,6 +223,17 @@ def phase2_compare(errs):
     for name, shape in (("heat2d", (24, 40)), ("heat3d", (10, 12, 14))):
         compare_tiled(name, rand(shape, torch.bfloat16), 3, {"t_s1": 8, "t_s2": 32, "t_t": 2}, (2e-2, 2e-2))
         say(f"  tiled {name} bf16 ok")
+    for name, shape, steps, tiles, dt in EDGE_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x = rand(shape, dtype)
+        e = compare_tiled(name, x, steps, tiles, tol(dtype) if dt == "bf16" else None)
+        # the same values from an address off the 16-byte grid: x starts 1
+        # element past an allocation's start
+        off = torch.empty(x.numel() + 1, device="cuda", dtype=dtype)[1:].view(shape)
+        off.copy_(x)
+        e_off = compare_tiled(name, off, steps, tiles, tol(dtype) if dt == "bf16" else None)
+        say(f"  edge {name:12s} {str(shape):15s} {steps} steps {dt} tiles {tiles}: ok "
+            f"(max |err| {e:.3g}; off the 16-byte grid {e_off:.3g})")
     # a tile that cannot fit raises before launch
     from repro_torch.kernels import _build
 
@@ -301,10 +335,10 @@ def phase4_codesigned_tiles():
         tiles = decode_index(lattice, int(idx[0]))
         tt = ts.normalize_tiles(tiles)
         shape = (4096, 4096) if st.dims == 2 else (4096, 4096, 4096)
-        nbytes = ts.window_bytes(shape, ts.tile_shape(st.dims, tt), tt[2])
+        nbytes = ts.smem_layout(shape, ts.tile_shape(st.dims, tt), tt[2]).nbytes
         if nbytes > ts.SMEM_LIMIT_BYTES:
-            say(f"  {name}: analytic optimum {tiles} needs a {tt[2]}-step window of {nbytes} B "
-                f"(two f32 buffers), over the {ts.SMEM_LIMIT_BYTES} B a block may have: not run")
+            say(f"  {name}: analytic optimum {tiles} needs {nbytes} B of shared memory for a "
+                f"{tt[2]}-step pass, over the {ts.SMEM_LIMIT_BYTES} B a block may have: not run")
             check(st.dims == 3, f"{name}: a 2-D optimum must fit")
             continue
         x = torch.randn(shape, generator=gen, device="cuda")
@@ -314,8 +348,9 @@ def phase4_codesigned_tiles():
         torch.cuda.synchronize()
         scale = max(1.0, float(want.abs().max()))
         e = _assert_close(got, want, 1e-4, 1e-4 * scale, f"{name} optimum tiles")
-        say(f"  {name}: analytic optimum {tiles}, {steps} steps on 4096^2 through K1: "
-            f"matches plain (max |err| {e:.3g}, field scale {scale:.3g})")
+        say(f"  {name}: analytic optimum {tiles}, {steps} steps on 4096^2 through K1 "
+            f"({nbytes} B of shared memory per block): matches plain (max |err| {e:.3g}, "
+            f"field scale {scale:.3g})")
     for name, mod in ops.KERNELS.items():
         shape = (8192, 8192) if mod.DIMS == 2 else (256, 256, 256)
         x = torch.randn(shape, generator=gen, device="cuda")
@@ -378,6 +413,52 @@ def phase5_measure_fit():
     say(f"calibrated codesign: {cal_s:.3f} s; best n_sm={p.n_sm} n_v={p.n_v} m_sm={p.m_sm} kB, "
         f"{g:.1f} GFLOP/s (model prediction, machine parameters fitted on this card)")
     return measure_s, fit_s, cal_s
+
+
+def _bound_ms(name, shape, n, itemsize=4):
+    """The least time for an n-step pass: each input element read once and
+    each output element written once at the card's memory rate, or the
+    useful flops at its f32 rate, whichever is larger."""
+    from repro_torch.kernels import ops
+
+    numel = 1
+    for d in shape:
+        numel *= d
+    t_bytes = 2 * numel * itemsize / PEAK_BYTES_PER_S
+    t_ops = ops.kernel_flops(name, shape, n) / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tile_lines(gen):
+    """K1 and K2 (heat, f32) at every tile of the measurement grid at
+    8192^2 / 256^3, and K1 at the 2-D jacobi optimum on 4096^2: time, bound
+    share, shared memory and blocks per SM."""
+    import torch
+
+    from repro_torch.kernels import tiled_stencils as ts
+    from repro_torch.measure import default_grid
+
+    runs = []
+    for name, cfgs in default_grid(smoke=False).items():
+        if name not in ("heat2d", "heat3d"):
+            continue
+        shape = (8192, 8192) if name == "heat2d" else (256, 256, 256)
+        for tiles in {tuple(sorted(c["tiles"].items())) for c in cfgs}:
+            runs.append((name, shape, dict(tiles)))
+    runs.sort(key=lambda r: (r[0], ts.normalize_tiles(r[2])))
+    runs.append(("jacobi2d", (4096, 4096), {"t_s1": 16, "t_s2": 128, "t_t": 32}))
+    say("  K1/K2 per tile (one pass of t_t steps per launch, f32):")
+    for name, shape, tiles in runs:
+        tt = ts.normalize_tiles(tiles)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        ms = _event_ms(lambda: ts.stencil_run_tiled(name, x, tt[2], tt))  # noqa: B023
+        layout = ts.smem_layout(shape, ts.tile_shape(len(shape), tt), tt[2])
+        blocks = ts.blocks_per_sm(len(shape), tt, layout)
+        bound_ms, bound_by = _bound_ms(name, shape, tt[2])
+        say(f"    {name:9s} {str(shape):16s} tiles {tt[:3] + (tt[4],) if len(shape) == 3 else tt[:3]}: "
+            f"{ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%} of it); "
+            f"{layout.nbytes} B shared memory and {min(tt[1], 1024)} threads per block, "
+            f"{blocks} blocks per SM")
 
 
 def phase6_times(launches, errs):
@@ -460,11 +541,7 @@ def phase6_times(launches, errs):
                 inner = step_plain(x, mod.update, mod.HALO)[(slice(1, -1),) * len(shape)]
                 _assert_close(one, inner, 1e-5, 1e-5, f"library yardstick {name}")
                 library_ms = _event_ms(lib)
-            nbytes = 2 * x.numel() * x.element_size()
-            flops = ops.kernel_flops(name, shape, n)
-            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
-            bound_ms = max(t_bytes, t_ops) * 1e3
-            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            bound_ms, bound_by = _bound_ms(name, shape, n, x.element_size())
             say(f"  {kernel} {name:12s} {shape} {'tiles ' + str(tiles) if tiles else 'block_rows ' + str(br)}: "
                 f"{ms:.4f} ms ({n} step(s)/launch; bound {bound_ms:.4f} ms by {bound_by}, "
                 f"{bound_ms / ms:.1%} of it); plain {plain_ms:.4f} ms; "
@@ -472,6 +549,7 @@ def phase6_times(launches, errs):
             if name in ("heat2d", "heat3d"):
                 rows[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                     library_ms=library_ms)
+    tile_lines(gen)
     meta = {
         "tiled2d": ("K1 tiled2d [heat2d 8192^2, tiles (16,64,t_t=2)]", "src/repro_torch/kernels/csrc/tiled.cu",
                     "src/repro/kernels/pallas_stencils.py:168"),

@@ -76,10 +76,12 @@ LAUNCHES: Dict[str, int] = {"tiled2d": 0, "tiled3d": 0, "step2d": 0, "step3d": 0
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY_POINTS = {
     "tiled": {
-        # x, out, dtype, stencil, s1, s2, t1, t2, n, h, smem bytes, stream
-        "repro_tiled2d": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
-        # x, out, dtype, stencil, s1, s2, s3, t1, t2, t3, n, h, smem bytes, stream
-        "repro_tiled3d": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
+        # x, out, dtype, stencil, s1, s2, t1, t2, n, h, pitch, slot, smem bytes, stream
+        "repro_tiled2d": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
+        # x, out, dtype, stencil, s1, s2, s3, t1, t2, t3, n, h, pitch, slot, smem bytes, stream
+        "repro_tiled3d": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
+        # dims, threads, smem bytes, out: blocks per SM
+        "repro_tiled_blocks_per_sm": [_I, _I, _LL, ctypes.POINTER(ctypes.c_int)],
     },
     "step": {
         # x, out, dtype, stencil, rows, width, h, block_rows, stream

@@ -19,13 +19,17 @@ optimizer picks.
   TPU kernel ignores it.
 
 On the card (``csrc/tiled.cu``) one block of ``min(t_s2, 1024)`` threads
-runs one tile: it stages the window in shared memory as f32, steps it
-there between two buffers, and writes back the core. The window is clipped
-to the array (cells outside it are pinned edge copies that no core value
-depends on), so it holds :func:`window_cells` cells and two buffers take
-:func:`window_bytes`. A pass whose window exceeds :data:`SMEM_LIMIT_BYTES`
-raises ``ValueError`` before launch: it is never run some other way, so a
-measurement stamped with a tile is always a run of that tile.
+runs one tile from its window, clipped to the array (cells outside it are
+pinned edge copies that no core value depends on), in shared memory as f32.
+Step ``s`` of an ``n``-step pass updates only the core widened by
+``radius * (n - s)`` (trapezoid), and the last step writes the core to
+device memory. K1 (2-D) holds the whole window in two buffers; K2 (3-D)
+streams it plane by plane along axis 0, keeping ``2 * radius + 1`` planes
+per time level and one plane in flight. :func:`smem_layout` gives the
+shared-memory layout the launch receives, and its bytes. A pass whose bytes
+exceed :data:`SMEM_LIMIT_BYTES` raises ``ValueError`` before launch: it is
+never run some other way, so a measurement stamped with a tile is always a
+run of that tile.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version, which evaluates every tile's window at once.
@@ -33,8 +37,9 @@ plain version, which evaluates every tile's window at once.
 
 from __future__ import annotations
 
+import ctypes
 from types import ModuleType
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,9 +52,10 @@ __all__ = [
     "SMEM_LIMIT_BYTES",
     "normalize_tiles",
     "tile_footprint_cells",
-    "window_cells",
-    "window_bytes",
+    "WindowLayout",
+    "smem_layout",
     "check_window",
+    "blocks_per_sm",
     "tile_shape",
     "tiled_pass_plain",
     "run_tiled_plain",
@@ -112,32 +118,60 @@ def _pass_depths(steps: int, t_t: int):
     return [min(t_t, steps - done) for done in range(0, steps, t_t)]
 
 
-def window_cells(shape: Sequence[int], tile_ext: Sequence[int], n: int, radius: int = 1) -> int:
-    """Cells of the largest window the kernel stages for an ``n``-step pass:
-    per axis the tile plus ``radius * n`` each side, clipped to the array."""
-    cells = 1
-    for s, t in zip(shape, tile_ext):
-        cells *= min(t + 2 * radius * n, s)
-    return cells
+class WindowLayout(NamedTuple):
+    """Shared memory of one block of a K1/K2 pass, in f32 elements."""
+
+    pitch: int  #: elements per row (the window's fastest axis)
+    slot: int  #: elements per buffer (2-D) or per plane (3-D), a multiple of 4
+    slots: int  #: buffers (2-D) or planes (3-D)
+    nbytes: int  #: ``4 * slot * slots``
 
 
-def window_bytes(shape: Sequence[int], tile_ext: Sequence[int], n: int, radius: int = 1) -> int:
-    """Shared-memory bytes of one block: two f32 buffers of the window."""
-    return 2 * 4 * window_cells(shape, tile_ext, n, radius)
+def smem_layout(shape: Sequence[int], tile_ext: Sequence[int], n: int, radius: int = 1) -> WindowLayout:
+    """The shared-memory layout of an ``n``-step pass, as ``csrc/tiled.cu``
+    uses it.
+
+    The window is the tile plus ``radius * n`` cells on each side, clipped
+    to the array. A row holds the window's fastest axis at a pitch equal to
+    the array's fastest extent modulo 4 (so every row keeps its source's
+    16-byte alignment), and each buffer or plane has 3 elements of slack for
+    the block's own offset, rounded up to a multiple of 4. 2-D: the whole
+    window, one buffer for one step and two for more. 3-D: planes of axes
+    1 and 2, ``2 * radius + 1`` per time level below ``n`` and one more at
+    level 0, ``(2 * radius + 1) * n + 1`` in all.
+    """
+    ext = [min(t + 2 * radius * n, s) for s, t in zip(shape, tile_ext)]
+    pitch = ext[-1] + (shape[-1] - ext[-1]) % 4
+    if len(shape) == 2:
+        rows, slots = ext[0], min(n, 2)
+    else:
+        rows, slots = ext[1], (2 * radius + 1) * n + 1
+    slot = -(-(rows * pitch + 3) // 4) * 4
+    return WindowLayout(pitch, slot, slots, 4 * slot * slots)
 
 
-def check_window(name: str, shape, tiles: Sequence[int], n: int, radius: int = 1) -> int:
-    """The window bytes of an ``n``-step pass; raises ``ValueError`` naming
-    the tile, the bytes and the limit when they exceed
+def check_window(name: str, shape, tiles: Sequence[int], n: int, radius: int = 1) -> WindowLayout:
+    """The layout of an ``n``-step pass; raises ``ValueError`` naming the
+    tile, the bytes and the limit when they exceed
     :data:`SMEM_LIMIT_BYTES`."""
-    nbytes = window_bytes(shape, tile_shape(len(shape), tiles), n, radius)
-    if nbytes > SMEM_LIMIT_BYTES:
+    layout = smem_layout(shape, tile_shape(len(shape), tiles), n, radius)
+    if layout.nbytes > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"{name}: tile {dict(zip(TILE_NAMES, tiles))} on shape {tuple(shape)} "
-            f"needs a {n}-step window of {nbytes} B of shared memory, over the "
+            f"needs {layout.nbytes} B of shared memory for a {n}-step pass, over the "
             f"{SMEM_LIMIT_BYTES} B a block may have"
         )
-    return nbytes
+    return layout
+
+
+def blocks_per_sm(dims: int, tiles: Sequence[int], layout: WindowLayout) -> int:
+    """Blocks of a K1 (``dims`` 2) or K2 (3) launch of this tile and layout
+    that fit on one SM of the current card."""
+    lib = _build.library("tiled")
+    blocks = ctypes.c_int()
+    rc = lib.repro_tiled_blocks_per_sm(dims, min(tiles[1], 1024), layout.nbytes, ctypes.byref(blocks))
+    _build.check(lib, rc, "tiled occupancy")
+    return blocks.value
 
 
 def tiled_pass_plain(
@@ -182,7 +216,7 @@ def tiled_pass_plain(
 
 def _launch(x: torch.Tensor, name: str, radius: int, tiles, n: int) -> torch.Tensor:
     kernel = "tiled3d" if x.dim() == 3 else "tiled2d"
-    smem = check_window(name, x.shape, tiles, n, radius)
+    layout = check_window(name, x.shape, tiles, n, radius)
     out, dtype_id = _build.cuda_args(x, kernel)
     lib = _build.library("tiled")
     sid = _build.STENCIL_IDS[name]
@@ -191,7 +225,7 @@ def _launch(x: torch.Tensor, name: str, radius: int, tiles, n: int) -> torch.Ten
         fn = lib.repro_tiled3d if x.dim() == 3 else lib.repro_tiled2d
         rc = fn(
             x.data_ptr(), out.data_ptr(), dtype_id, sid, *x.shape, *tile_shape(x.dim(), tiles),
-            n, radius, smem, stream,
+            n, radius, layout.pitch, layout.slot, layout.nbytes, stream,
         )
     _build.check(lib, rc, kernel)
     _build.LAUNCHES[kernel] += 1

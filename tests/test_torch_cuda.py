@@ -83,6 +83,66 @@ def test_tiled_bf16_and_launch_count(card):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
 
 
+#: K1/K2 edge cases: t_s1 = 1 strips and t_s1 >= s1, last passes shorter
+#: than t_t, windows clipped at both ends of an axis, 1024 threads for
+#: windows wider than 1024, widths that are not multiples of 4 (unaligned
+#: row heads and tails), bf16 in 3-D
+EDGE_CASES = [
+    ("jacobi2d", (45, 131), 5, {"t_s1": 1, "t_s2": 32, "t_t": 2}, torch.float32),
+    ("heat2d", (37, 53), 7, {"t_s1": 64, "t_s2": 64, "t_t": 3}, torch.float32),
+    ("gradient2d", (40, 2100), 3, {"t_s1": 4, "t_s2": 1024, "t_t": 2}, torch.float32),
+    ("laplacian2d", (33, 1030), 4, {"t_s1": 8, "t_s2": 1024, "t_t": 3}, torch.float32),
+    ("heat2d", (29, 1027), 3, {"t_s1": 16, "t_s2": 1024, "t_t": 2}, torch.bfloat16),
+    ("heat3d", (9, 21, 23), 5, {"t_s1": 1, "t_s2": 32, "t_t": 2, "t_s3": 4}, torch.float32),
+    ("laplacian3d", (11, 13, 17), 5, {"t_s1": 16, "t_s2": 32, "t_t": 3, "t_s3": 32}, torch.float32),
+    ("heat3d", (20, 70, 37), 6, {"t_s1": 8, "t_s2": 64, "t_t": 4, "t_s3": 8}, torch.float32),
+    ("heat3d", (6, 1030, 7), 2, {"t_s1": 2, "t_s2": 1024, "t_t": 2, "t_s3": 2}, torch.float32),
+    ("laplacian3d", (17, 9, 33), 3, {"t_s1": 4, "t_s2": 32, "t_t": 2, "t_s3": 8}, torch.bfloat16),
+    ("heat3d", (12, 40, 30), 5, {"t_s1": 3, "t_s2": 16, "t_t": 3, "t_s3": 5}, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("name, shape, steps, tiles, dtype", EDGE_CASES)
+def test_tiled_edge_cases_match_plain(card, name, shape, steps, tiles, dtype, offset):
+    """``offset`` 1 starts the input one element past an allocation's
+    start, off the 16-byte grid of the vector staging."""
+    x = _rand(shape, dtype, card, seed=4)
+    if offset:
+        y = torch.empty(x.numel() + offset, device=card, dtype=dtype)[offset:].view(shape)
+        x = y.copy_(x)
+    got = ts.run_tiled(name, x, steps=steps, tiles=tiles)
+    want = ts.run_tiled_plain(name, x, steps, ts.normalize_tiles(tiles))
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    else:
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("name", ["jacobi2d", "heat2d", "laplacian2d", "gradient2d"])
+def test_tiled_2d_analytic_optimum_at_4096(card, name):
+    """One full pass of the stock-point analytic optimum's time tile on
+    4096^2, as the codesign path runs it."""
+    import numpy as np
+
+    from repro_torch.core.solver import LATTICE_2D, decode_index, solve_cell
+    from repro_torch.core.timemodel import MAXWELL_GPU, STENCILS, ProblemSize
+
+    stock = (np.array([16.0]), np.array([128.0]), np.array([96.0]))
+    _, idx = solve_cell(STENCILS[name], MAXWELL_GPU, ProblemSize(4096, 4096, 1024), *stock, LATTICE_2D)
+    tiles = decode_index(LATTICE_2D, int(idx[0]))
+    t = ts.normalize_tiles(tiles)
+    x = _rand((4096, 4096), torch.float32, card, seed=5)
+    got = ts.run_tiled(name, x, steps=t[2], tiles=tiles)
+    want = ts.run_tiled_plain(name, x, t[2], t)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
 def test_oversized_window_raises_before_launch(card):
     x = _rand((64, 128, 128), torch.float32, card)
     before = dict(_build.LAUNCHES)

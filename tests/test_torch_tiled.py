@@ -129,19 +129,66 @@ def test_footprint_matches_reference():
 
 def test_window_check_refuses_the_3d_analytic_optimum():
     """The 3-D optimum (8, 64, t_t=16, t_s3=2) widens every axis by 16 per
-    side: 40 x 96 x 34 cells, 522,240 B per f32 buffer -- over the 232,448 B
-    a block may have. The check raises before any launch, naming tile,
-    bytes and limit; it is pure Python."""
+    side: planes of 96 x 34 cells (pitch 36), and the streamed window keeps
+    3 x 16 + 1 = 49 of them, 678,160 B -- over the 232,448 B a block may
+    have. The check raises before any launch, naming tile, bytes and limit;
+    it is pure Python."""
     tiles = ts.normalize_tiles({"t_s1": 8, "t_s2": 64, "t_t": 16, "k": 1, "t_s3": 2})
-    assert ts.window_cells((4096, 4096, 4096), (8, 64, 2), 16) * 4 == 522_240
-    with pytest.raises(ValueError, match=r"1044480 B.*232448 B") as err:
+    assert ts.smem_layout((4096, 4096, 4096), (8, 64, 2), 16) == (36, 3460, 49, 678_160)
+    with pytest.raises(ValueError, match=r"678160 B.*232448 B") as err:
         ts.check_window("heat3d", (4096, 4096, 4096), tiles, 16)
     assert "t_s1" in str(err.value) and "232448" in str(err.value)
     # the 2-D jacobi optimum (16, 128, t_t=32) fits: 80 x 192 cells, two buffers
     t2 = ts.normalize_tiles({"t_s1": 16, "t_s2": 128, "t_t": 32})
-    assert ts.check_window("jacobi2d", (4096, 4096), t2, 32) == 2 * 61_440
+    assert ts.check_window("jacobi2d", (4096, 4096), t2, 32).nbytes == 2 * 4 * 15_364
     # windows are clipped to the array, so a small array fits any tile
-    assert ts.check_window("heat3d", (11, 13, 17), tiles, 16) == 2 * 4 * 11 * 13 * 17
+    assert ts.check_window("heat3d", (11, 13, 17), tiles, 16).nbytes == 49 * 4 * 224
+
+
+@pytest.mark.parametrize(
+    "shape, tile, n, want",
+    [
+        # unclipped: 20 x 68 window, pitch 68 (8192 = 0 mod 4); one buffer for one step
+        ((8192, 8192), (16, 64), 2, (68, 1364, 2, 10_912)),
+        # one step: 18 x 66 cells, pitch padded to 68 = 8192 mod 4
+        ((8192, 8192), (16, 64), 1, (68, 1228, 1, 4_912)),
+        # clipped at both ends of both axes: the whole 37 x 53 array
+        ((37, 53), (64, 64), 3, (53, 1964, 2, 15_712)),
+        # a 36-cell row of a 131-wide array: pitch 39 = 131 mod 4
+        ((45, 131), (1, 32), 2, (39, 200, 2, 1_600)),
+        # more window columns (1028) than threads (1024), clipped to 1030
+        ((33, 1030), (8, 1024), 3, (1030, 14_424, 2, 115_392)),
+    ],
+)
+def test_smem_layout_2d(shape, tile, n, want):
+    layout = ts.smem_layout(shape, tile, n)
+    assert layout == want
+    ext = [min(t + 2 * n, s) for s, t in zip(shape, tile)]
+    assert layout.pitch >= ext[1] and (layout.pitch - shape[1]) % 4 == 0
+    assert layout.slot % 4 == 0 and layout.slot >= ext[0] * layout.pitch + 3
+
+
+@pytest.mark.parametrize(
+    "shape, tile, n, want",
+    [
+        # K2's main tile: 36 x 12 planes, 3 per level and one in flight: 7
+        ((256, 256, 256), (8, 32, 8), 2, (12, 436, 7, 12_208)),
+        # one step: 34 x 10 planes, pitch padded to 12; 3 + 1 of them
+        ((256, 256, 256), (8, 32, 8), 1, (12, 412, 4, 6_592)),
+        # clipped on every axis: planes of the whole 13 x 17 face
+        ((11, 13, 17), (16, 32, 32), 3, (17, 224, 10, 8_960)),
+        # a 7-wide array: pitch 7, rows of 1028 of 1030 planes' cells
+        ((6, 1030, 7), (2, 1024, 2), 2, (7, 7_200, 7, 201_600)),
+    ],
+)
+def test_smem_layout_3d(shape, tile, n, want):
+    layout = ts.smem_layout(shape, tile, n)
+    assert layout == want
+    ext = [min(t + 2 * n, s) for s, t in zip(shape, tile)]
+    assert layout.pitch >= ext[2] and (layout.pitch - shape[2]) % 4 == 0
+    assert layout.slot % 4 == 0 and layout.slot >= ext[1] * layout.pitch + 3
+    # never more than the two whole-window f32 buffers it replaces, plus slack
+    assert layout.nbytes <= 2 * 4 * ext[0] * ext[1] * layout.pitch + 4 * 4 * layout.slots
 
 
 def test_plain_pass_is_tile_invariant_and_exact():
