@@ -22,13 +22,21 @@ the sweep again on the calibrated machine. Phases:
 5. measure -> refit -> calibrated codesign;
 6. kernel times (CUDA events) beside their bound, plain and library times;
    K1/K2 at every tile of the measurement grid and K1 at the 2-D jacobi
-   optimum, each with its bound share, shared memory and blocks per SM.
+   optimum, each with its bound share, shared memory and blocks per SM;
+7. the served path, in a temporary artifact store: ``repro_torch.measure
+   .cli`` ``run --full`` (K1/K2 on the card), ``fit``, ``build --engine
+   torch`` at full width; the calibrated sweep served by
+   ``server_from_artifact`` to 64 seeded mixes from threads (microbatched)
+   and one at a time; a ``CodesignServer`` at the stock GTX-980 spec whose
+   miss path sweeps on the card, and a second server over the same store
+   that answers warm with phase 3's best point.
 
 The launch counters are set to 0 just before phase 3 and read just after
-phase 5: every kernel must have been launched on the main path. A failed
+phase 5, and again just before and after phase 7: every kernel must have
+been launched on the main path, and K1/K2 on the served path. A failed
 check raises; nothing is caught. The last three lines are a JSON object of
-per-kernel numbers, the card's name and power limit as ``nvidia-smi``
-gives them, and the device record.
+per-kernel numbers (launches: main path plus served path), the card's name
+and power limit as ``nvidia-smi`` gives them, and the device record.
 """
 
 from __future__ import annotations
@@ -463,7 +471,8 @@ def tile_lines(gen):
 
 def phase6_times(launches, errs):
     """Per kernel at the main path's shapes: kernel, plain and library
-    times by CUDA events, and the bound."""
+    times by CUDA events, and the bound; one row per kernel, keyed by its
+    launch counter."""
     import torch
     import torch.nn.functional as F
 
@@ -560,11 +569,144 @@ def phase6_times(launches, errs):
         "step3d": ("K4 step3d [heat3d 256^3]", "src/repro_torch/kernels/csrc/step.cu",
                    "src/repro/kernels/stencil_common.py:176"),
     }
-    out = []
-    for kernel, (label, source, replaces) in meta.items():
-        out.append({"name": label, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[kernel], "max_abs_err": errs[kernel], **rows[kernel]})
-    return out
+    return {
+        kernel: {"name": label, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[kernel], "max_abs_err": errs[kernel], **rows[kernel]}
+        for kernel, (label, source, replaces) in meta.items()
+    }
+
+
+def _pct(values, q):
+    """The q-th percentile (nearest rank) of ``values``."""
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, max(0, -(-len(ordered) * q // 100) - 1))]
+
+
+def phase7_served(analytic, smi):
+    """measure.cli run -> fit -> build on the card, then the calibrated
+    sweep served from the store; a cold and a warm server at the stock
+    spec. Returns the build seconds."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.measure import CalibrationResult, MeasurementRun, cli
+    from repro_torch.service import ArtifactStore, CodesignServer, QueryRequest, server_from_artifact
+
+    say("== phase 7: served path (measure.cli run -> fit -> build, then the server)")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-store-") as root:
+        store = ArtifactStore(root)
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        cli.main(["run", "--store", root, "--full"])
+        run_s = time.perf_counter() - t0
+        launched = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        say(f"  run: {run_s:.2f} s; kernel launches {launched}")
+        check(launched["tiled2d"] > 0 and launched["tiled3d"] > 0, "measure.cli run launched K1 and K2")
+        meas = cli._latest(store, "measurement")
+        run = MeasurementRun.from_payload(meas.payload)
+        check(run.backend == "cuda" and run.interpret is False, "stored measurement is a card run")
+        check(meas.routing()["backend"] == "cuda" and meas.routing()["interpret"] is False,
+              "measurement routing stamped from the run")
+
+        cli.main(["fit", "--store", root])
+        cal = CalibrationResult.from_payload(cli._latest(store, "calibration").payload)
+        check(cal.loss_after < cal.loss_before, "the CLI fit lowers the loss")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["build", "--store", root, "--engine", "torch"])
+        build_s = time.perf_counter() - t0
+        art = cli._latest(store, "sweep")
+        check((art.n_cells, art.n_hw) == (96, 5121), "calibrated build at full width")
+        check(art.manifest["spec"]["engine"] == "torch", "built by the torch engine")
+        say(f"served: build --engine torch (5,121 points x 96 cells, sweep + store write) "
+            f"{build_s:.3f} s [{smi}]")
+
+        srv = server_from_artifact(store, art, batch_window=0.002)
+        solo = server_from_artifact(store, art, batch_window=0.0)
+        names = art.stencil_names
+        rng = np.random.default_rng(0)
+        reqs = [QueryRequest(freqs=dict(zip(names, rng.uniform(0.1, 1.0, size=len(names)))),
+                             max_area=float(rng.uniform(350.0, 650.0)), top_k=3, pareto=True,
+                             use_cache=False) for _ in range(64)]
+
+        def reduce_seconds():
+            from repro_torch.obs import get_registry
+
+            samples = get_registry().snapshot()["repro_query_reduce_seconds"]["samples"]
+            return (samples[0]["sum"], samples[0]["count"]) if samples else (0.0, 0)
+
+        seq_lat = []
+        red0 = reduce_seconds()
+        t0 = time.perf_counter()
+        for r in reqs:
+            t = time.perf_counter()
+            solo.query(r)
+            seq_lat.append(time.perf_counter() - t)
+        seq_qps = len(reqs) / (time.perf_counter() - t0)
+        red1 = reduce_seconds()
+
+        out, lat = [None] * len(reqs), [0.0] * len(reqs)
+        barrier = threading.Barrier(len(reqs))
+
+        def worker(i):
+            barrier.wait()
+            t = time.perf_counter()
+            out[i] = srv.query(reqs[i])
+            lat[i] = time.perf_counter() - t
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(reqs))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        batch_qps = len(reqs) / (time.perf_counter() - t0)
+        red2 = reduce_seconds()
+        for i, r in enumerate(reqs):
+            want = srv.query(r)  # the same server, one at a time
+            got = out[i]
+            check(got is not None and got.best_index == want.best_index, f"request {i}: best index")
+            check([t["index"] for t in got.top_k] == [t["index"] for t in want.top_k], f"request {i}: top-k")
+            check(abs(got.best_gflops - want.best_gflops) <= 1e-12 * abs(want.best_gflops),
+                  f"request {i}: best GFLOP/s within rel 1e-12")
+            check(np.array_equal(got.pareto_indices, want.pareto_indices), f"request {i}: Pareto indices")
+        check(srv.stats["max_batch"] > 1, "the rendezvous batched")
+        say(f"  64 microbatched answers equal the same server's one-at-a-time answers; "
+            f"batches {srv.stats['batches'] - len(reqs)}, largest {srv.stats['max_batch']}")
+        say(f"served: queries one at a time {seq_qps:.1f} q/s, p50 {_pct(seq_lat, 50) * 1e3:.3f} ms, "
+            f"p99 {_pct(seq_lat, 99) * 1e3:.3f} ms [{smi}]")
+        say(f"served: queries microbatched (64 threads, window 2 ms) {batch_qps:.1f} q/s, "
+            f"p50 {_pct(lat, 50) * 1e3:.3f} ms, p99 {_pct(lat, 99) * 1e3:.3f} ms [{smi}]")
+        say(f"served: reduction (repro_query_reduce_seconds) one at a time "
+            f"{(red1[0] - red0[0]) / (red1[1] - red0[1]) * 1e3:.4f} ms per request of "
+            f"{sum(seq_lat) / len(seq_lat) * 1e3:.4f} ms mean latency; microbatched "
+            f"{(red2[0] - red1[0]) * 1e3:.4f} ms in {red2[1] - red1[1]} pass(es) [{smi}]")
+
+        cold = CodesignServer(store, engine="torch", batch_window=0.0)
+        check(not cold.warm, "the stock-spec sweep is not stored yet")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cold_resp = cold.query(QueryRequest())
+        cold_s = time.perf_counter() - t0
+        check(cold.stats["artifact_builds"] == 1, "the cold server built once, on the card")
+        warm = CodesignServer(store, engine="torch", batch_window=0.0)
+        check(warm.warm, "a second server over the same store is warm")
+        warm_resp = warm.query(QueryRequest())
+        check(warm.stats["artifact_builds"] == 0 and warm.stats["artifact_loads"] == 1,
+              "the warm server loaded, never built")
+        i3, g3 = analytic.best()
+        check(warm_resp.best_index == cold_resp.best_index == i3, "warm best point = phase 3's")
+        check(abs(warm_resp.best_gflops - g3) <= 1e-12 * abs(g3), "warm best GFLOP/s = phase 3's")
+        p = warm_resp.best_point
+        say(f"  cold server miss path (sweep on the card + store write + first answer) {cold_s:.3f} s; "
+            f"warm server best n_sm={p['n_sm']} n_v={p['n_v']} m_sm={p['m_sm']} kB, "
+            f"{warm_resp.best_gflops:.1f} GFLOP/s (model prediction) = phase 3's")
+    return build_s
 
 
 def main() -> int:
@@ -588,7 +730,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     _build.reset_launches()  # the main path starts here
-    _, sweep_s = phase3_codesign()
+    analytic, sweep_s = phase3_codesign()
     torch.cuda.synchronize()
     phase4_codesigned_tiles()
     torch.cuda.synchronize()
@@ -601,9 +743,20 @@ def main() -> int:
 
     kernels = phase6_times(launches, errs)
     torch.cuda.synchronize()
+
+    _build.reset_launches()  # the served path starts here
+    build_s = phase7_served(analytic, smi)
+    torch.cuda.synchronize()
+    served_launches = dict(_build.LAUNCHES)  # the served path ends here
+    say(f"served path launches: {served_launches}")
+    for kernel in ("tiled2d", "tiled3d"):
+        check(served_launches[kernel] > 0, f"{kernel} was not launched on the served path")
+    for kernel, row in kernels.items():
+        row["launches"] += served_launches[kernel]
     say(f"seconds: sweep {sweep_s:.3f}, measure {measure_s:.2f}, fit {fit_s:.2f}, "
-        f"calibrated codesign {cal_s:.3f}, total {time.perf_counter() - t_start:.1f}")
-    print(json.dumps({"kernels": kernels}))
+        f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, "
+        f"total {time.perf_counter() - t_start:.1f}")
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))

@@ -23,15 +23,32 @@ raises.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..obs.metrics import get_registry as _obs_registry
+from ..obs.trace import span
 from .area import GTX980, MAXWELL, TITAN_X, HardwarePoint, LinearAreaModel
 from .pareto import pareto_mask
 from .solver import LATTICE_2D, LATTICE_3D, TileLattice, decode_index, solve_cell
-from .timemodel import MAXWELL_GPU, GPUSpec, ProblemSize, stencil_time
-from .workload import Workload
+from .timemodel import MAXWELL_GPU, GPUSpec, ProblemSize, StencilSpec, stencil_time
+from .workload import Workload, WorkloadCell
+
+# ---- observability (repro_torch.obs; no-ops under REPRO_OBS_DISABLED=1) --
+_REG = _obs_registry()
+_M_CODESIGN_SECONDS = _REG.histogram(
+    "repro_codesign_seconds",
+    "wall time of one full codesign() sweep (all cells x hardware "
+    "points), by resolved engine and cell family",
+    labels=("engine", "family"),
+)
+_M_CODESIGN_CELLS = _REG.counter(
+    "repro_codesign_cells_total",
+    "workload cells swept by codesign(), by resolved engine",
+    labels=("engine",),
+)
 
 __all__ = [
     "HardwareSpace",
@@ -224,6 +241,115 @@ class CodesignResult:
                     tiles[ci] = start[ci]
         return times, tiles
 
+    def routing_metadata(self) -> Dict[str, object]:
+        """The attributes a multi-artifact front-end routes on, derivable
+        without touching any array: GPU target, stencil set, workload name.
+        Persisted verbatim as the manifest's ``"routing"`` block so a
+        gateway can index hundreds of artifacts from their (small) JSON
+        manifests alone -- no mmap, no npz decompression."""
+        return {
+            "gpu": self.gpu.name,
+            "workload": self.workload.name,
+            "stencils": sorted({c.stencil.name for c in self.workload.cells}),
+        }
+
+    # ---- artifact serialization (repro_torch.service.store hooks) ----------
+    def artifact_payload(self) -> Tuple[dict, Dict[str, np.ndarray]]:
+        """(manifest, arrays) split for on-disk persistence.
+
+        The manifest is pure JSON (workload cells with full stencil specs,
+        GPU constants, the per-cell lattice tables, and the ``"routing"``
+        block of :meth:`routing_metadata`); the arrays dict holds the big
+        matrices. :meth:`from_artifact_payload` inverts it exactly: JSON
+        round-trips float64 losslessly, so a reloaded result's
+        ``weighted_time``/``pareto`` are bit-identical.
+        """
+        unique: List[TileLattice] = []
+        lat_idx: List[int] = []
+        for lat in self.lattices:
+            if lat not in unique:
+                unique.append(lat)
+            lat_idx.append(unique.index(lat))
+        manifest = {
+            "workload": {
+                "name": self.workload.name,
+                "cells": [
+                    {
+                        "stencil": dataclasses.asdict(c.stencil),
+                        "size": {
+                            "s1": int(c.size.s1), "s2": int(c.size.s2),
+                            "t": int(c.size.t), "s3": int(c.size.s3),
+                        },
+                        "freq": float(c.freq),
+                        "lattice": lat_idx[i],
+                    }
+                    for i, c in enumerate(self.workload.cells)
+                ],
+            },
+            "gpu": dataclasses.asdict(self.gpu),
+            "lattices": [
+                {k: list(getattr(lat, k)) for k in ("t_s1", "t_s2", "t_t", "k", "t_s3")}
+                for lat in unique
+            ],
+            "routing": self.routing_metadata(),
+        }
+        arrays = {
+            "cell_time": np.asarray(self.cell_time, np.float64),
+            "cell_tile_idx": np.asarray(self.cell_tile_idx, np.int64),
+            "hw_n_sm": np.asarray(self.hw.n_sm, np.float64),
+            "hw_n_v": np.asarray(self.hw.n_v, np.float64),
+            "hw_m_sm": np.asarray(self.hw.m_sm, np.float64),
+            "hw_area": np.asarray(self.hw.area, np.float64),
+        }
+        return manifest, arrays
+
+    @staticmethod
+    def parse_manifest(
+        manifest: dict,
+    ) -> Tuple[Workload, GPUSpec, List[TileLattice]]:
+        """The JSON-only half of :meth:`from_artifact_payload`:
+        ``(workload, gpu, per-cell lattices)`` from a stored manifest,
+        touching no arrays. A service front-end uses this to reconstruct a
+        server's configuration from a discovered artifact without paging
+        in its ``(C, H)`` matrix."""
+        lattices_tbl = [
+            TileLattice(**{k: tuple(int(x) for x in v) for k, v in d.items()})
+            for d in manifest["lattices"]
+        ]
+        cells = []
+        lattices: List[TileLattice] = []
+        for c in manifest["workload"]["cells"]:
+            st = StencilSpec(**c["stencil"])
+            sz = c["size"]
+            size = ProblemSize(s1=sz["s1"], s2=sz["s2"], t=sz["t"], s3=sz["s3"])
+            cells.append(WorkloadCell(st, size, c["freq"]))
+            lattices.append(lattices_tbl[c["lattice"]])
+        workload = Workload(manifest["workload"]["name"], tuple(cells))
+        gpu = GPUSpec(**manifest["gpu"])
+        return workload, gpu, lattices
+
+    @classmethod
+    def from_artifact_payload(
+        cls, manifest: dict, arrays: Dict[str, np.ndarray]
+    ) -> "CodesignResult":
+        """Rebuild a result from :meth:`artifact_payload` output. Array
+        values may be mmap-backed; they are used as-is (no copy)."""
+        workload, gpu, lattices = cls.parse_manifest(manifest)
+        hw = HardwareSpace(
+            n_sm=np.asarray(arrays["hw_n_sm"], np.float64),
+            n_v=np.asarray(arrays["hw_n_v"], np.float64),
+            m_sm=np.asarray(arrays["hw_m_sm"], np.float64),
+            area=np.asarray(arrays["hw_area"], np.float64),
+        )
+        return cls(
+            workload=workload,
+            gpu=gpu,
+            hw=hw,
+            cell_time=np.asarray(arrays["cell_time"]),
+            cell_tile_idx=np.asarray(arrays["cell_tile_idx"]),
+            lattices=lattices,
+        )
+
 
 #: below this many hardware points the numpy oracle is the cheaper engine;
 #: ``engine="auto"`` picks it there (the JAX package's rule).
@@ -269,23 +395,32 @@ def codesign(
     lattices: List[TileLattice] = [
         lattice_3d if c.stencil.dims == 3 else lattice_2d for c in workload.cells
     ]
-    if eng == "torch":
-        from . import sweep
+    from . import sweep
 
-        for st, cis, sizes in _stencil_groups(workload).values():
-            t, i = sweep.sweep_cells(
-                st, gpu, sizes, hw.n_sm, hw.n_v, hw.m_sm, lattices[cis[0]], chunk,
-                device=device,
-            )
-            cell_time[cis] = t
-            cell_idx[cis] = i
-    else:
-        np_chunk = 512 if chunk is None else chunk
-        for ci, cell in enumerate(workload.cells):
-            cell_time[ci], cell_idx[ci] = solve_cell(
-                cell.stencil, gpu, cell.size, hw.n_sm, hw.n_v, hw.m_sm,
-                lattices[ci], np_chunk,
-            )
+    t0 = time.perf_counter()
+    with span("codesign", family="stencil", engine=eng, cells=C, hw=H):
+        if eng == "torch":
+            for st, cis, sizes in _stencil_groups(workload).values():
+                t, i = sweep.sweep_cells(
+                    st, gpu, sizes, hw.n_sm, hw.n_v, hw.m_sm, lattices[cis[0]], chunk,
+                    device=device,
+                )
+                cell_time[cis] = t
+                cell_idx[cis] = i
+        else:
+            np_chunk = 512 if chunk is None else chunk
+            for ci, cell in enumerate(workload.cells):
+                cell_time[ci], cell_idx[ci] = solve_cell(
+                    cell.stencil, gpu, cell.size, hw.n_sm, hw.n_v, hw.m_sm,
+                    lattices[ci], np_chunk,
+                )
+            # the oracle has no dispatch hook of its own: count its cell
+            # evaluations here so engine throughput is comparable
+            sweep._M_CELL_EVALS.labels(engine="numpy").inc(C * H)
+    _M_CODESIGN_SECONDS.labels(engine=eng, family="stencil").observe(
+        time.perf_counter() - t0
+    )
+    _M_CODESIGN_CELLS.labels(engine=eng).inc(C)
     return CodesignResult(workload, gpu, hw, cell_time, cell_idx, lattices)
 
 

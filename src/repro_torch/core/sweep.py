@@ -24,12 +24,15 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..obs.metrics import get_registry as _obs_registry
 from .solver import LATTICE_2D, LATTICE_3D, TileLattice
 from .solver import _STEPS as _SOLVER_STEPS
 from .timemodel import GPUSpec, ProblemSize, StencilSpec, stencil_time
@@ -55,6 +58,40 @@ SW_NAMES = ("t_s1", "t_s2", "t_t", "k", "t_s3")
 #: the numpy oracle's table so the two refine paths cannot drift apart.
 SW_STEPS = tuple(float(_SOLVER_STEPS[k]) for k in SW_NAMES)
 SW_MINS = tuple(1.0 if k == "t_s1" else float(_SOLVER_STEPS[k]) for k in SW_NAMES)
+
+# ---- observability (repro_torch.obs; no-ops under REPRO_OBS_DISABLED=1) --
+_REG = _obs_registry()
+_M_DISPATCH_SECONDS = _REG.histogram(
+    "repro_sweep_dispatch_seconds",
+    "wall time of one sweep dispatch (solve call through host "
+    "materialization), split by engine and phase: 'first' is the initial "
+    "dispatch of a (device, shape) pair -- allocator and context warm-up "
+    "included -- 'steady' is every later dispatch of the same pair",
+    labels=("engine", "phase"),
+)
+_M_CELL_EVALS = _REG.counter(
+    "repro_sweep_cell_evals_total",
+    "optima-matrix entries produced (P sizes x H hardware points per "
+    "dispatch) -- divide by dispatch seconds for cells/sec",
+    labels=("engine",),
+)
+
+#: (device, shapes) pairs whose first dispatch has been seen.
+_DISPATCH_SEEN: set = set()
+_DISPATCH_MU = threading.Lock()
+
+
+def _note_dispatch(engine: str, cache_key: tuple, p: int, h: int, dt: float) -> None:
+    """Record one dispatch, classified first/steady by whether this
+    (device, shape) pair has dispatched before."""
+    with _DISPATCH_MU:
+        first = cache_key not in _DISPATCH_SEEN
+        if first:
+            _DISPATCH_SEEN.add(cache_key)
+    _M_DISPATCH_SECONDS.labels(
+        engine=engine, phase="first" if first else "steady"
+    ).observe(dt)
+    _M_CELL_EVALS.labels(engine=engine).inc(p * h)
 
 
 def _lattice_arrays(lattice: TileLattice, gpu: GPUSpec, device):
@@ -137,6 +174,7 @@ def sweep_cells(
     lat, keep_idx = _lattice_arrays(lattice, gpu, device)
     if keep_idx.numel() == 0 or h == 0:
         return np.full((p, h), np.inf), np.full((p, h), -1, np.int64)
+    t0 = time.perf_counter()
     best_of = _best_of_factory(gpu, lat, keep_idx)
     sz = torch.as_tensor(sizes, dtype=torch.float32, device=device)
     step = h if chunk <= 0 else int(chunk)
@@ -146,10 +184,15 @@ def sweep_cells(
         t, i = best_of(hw[lo:lo + step], sz, st)
         best_t[:, lo:lo + step] = t
         best_i[:, lo:lo + step] = i
-    return (
-        best_t.cpu().numpy().astype(np.float64),
+    out = (
+        best_t.cpu().numpy().astype(np.float64),  # waits for the device
         best_i.cpu().numpy().astype(np.int64),
     )
+    _note_dispatch(
+        "torch", (str(device), p, h, step, keep_idx.numel()), p, h,
+        time.perf_counter() - t0,
+    )
+    return out
 
 
 def sweep_cell(

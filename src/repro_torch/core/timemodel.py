@@ -36,6 +36,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
 __all__ = [
     "StencilSpec",
     "GPUSpec",
@@ -183,17 +185,19 @@ class _TorchOps:
 
 def _ops(xp, dtype, device, *args):
     """The namespace for ``xp`` (numpy or torch). For torch, ``device``
-    defaults to the device of the first tensor argument, else the CPU."""
+    defaults to the device of the first tensor argument, else the card
+    (:func:`repro_torch._device.resolve_device`: it raises without one,
+    so nothing runs on the CPU unless a CPU tensor or ``device="cpu"``
+    asked for it)."""
     if xp is np:
         return _NumpyOps(dtype)
     if xp is not torch:
         raise TypeError(f"xp must be numpy or torch, got {xp!r}")
     if device is None:
         device = next(
-            (a.device for a in args if isinstance(a, torch.Tensor)),
-            torch.device("cpu"),
+            (a.device for a in args if isinstance(a, torch.Tensor)), None
         )
-    return _TorchOps(dtype, device)
+    return _TorchOps(dtype, resolve_device(device))
 
 
 def _ceil_div(ops, a, b):

@@ -27,6 +27,19 @@ import torch
 from .._device import resolve_device
 from ..core.timemodel import MAXWELL_GPU, STENCILS, GPUSpec, ProblemSize, feasible
 from ..kernels.tiled_stencils import TILE_NAMES, normalize_tiles, run_tiled
+from ..obs.metrics import get_registry as _obs_registry
+
+# ---- observability (repro_torch.obs; no-ops under REPRO_OBS_DISABLED=1) --
+_REG = _obs_registry()
+_M_POINTS = _REG.counter(
+    "repro_measure_points_total",
+    "measured (stencil, size, tiles) points, by stencil",
+    labels=("stencil",),
+)
+_M_POINT_SECONDS = _REG.histogram(
+    "repro_measure_point_seconds",
+    "median wall seconds of one measured point (the recorded time_s)",
+)
 
 __all__ = [
     "MeasurementRecord",
@@ -224,11 +237,14 @@ def measure_one(
         int(shape[2]) if dims == 3 else 1,
         int(steps),
     )
+    median = float(statistics.median(times))
+    _M_POINTS.labels(stencil=name).inc()
+    _M_POINT_SECONDS.observe(median)
     return MeasurementRecord(
         stencil=name,
         size=size,
         tiles=tile_tuple,
-        time_s=float(statistics.median(times)),
+        time_s=median,
         hw=(hw["n_sm"], hw["n_v"], hw["m_sm"]),
         repeats=int(repeats),
         warmup=int(warmup),

@@ -156,3 +156,48 @@ def test_wrappers_refuse_unsupported_input(card):
         ops.stencil_step("heat2d", torch.zeros(8, 8, device=card, dtype=torch.float64))
     with pytest.raises(ValueError, match="contiguous"):
         ops.stencil_step("heat2d", torch.zeros(8, 16, device=card)[:, ::2])
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_server_builds_torch_sweep_on_the_card(card, tmp_path):
+    """A ``CodesignServer`` with ``engine="torch"`` builds its artifact on
+    the card (the miss path); per cell, best point and Pareto front it
+    agrees with an ``engine="numpy"`` server under the tie-aware RTOL 1e-5
+    check of ``chip_smoke._tie_check``."""
+    import numpy as np
+
+    from repro_torch.core import enumerate_hw_space
+    from repro_torch.core.timemodel import MAXWELL_GPU
+    from repro_torch.service import ArtifactStore, CodesignServer, QueryRequest
+
+    rtol = 1e-5
+    hw = enumerate_hw_space().downsample(32)
+    store = ArtifactStore(str(tmp_path))
+    srv = CodesignServer(store, hw=hw, engine="torch", batch_window=0.0)
+    ref = CodesignServer(store, hw=hw, engine="numpy", batch_window=0.0)
+    got_resp, want_resp = srv.query(QueryRequest(pareto=True)), ref.query(QueryRequest(pareto=True))
+    assert srv.stats["artifact_builds"] == 1 and srv.key != ref.key
+    got, want = store.get(srv.key).to_result(), store.get(ref.key).to_result()
+    tie_check = _chip_smoke()._tie_check
+    for ci, cell in enumerate(want.workload.cells):
+        tie_check(cell.stencil, MAXWELL_GPU, cell.size, want.lattices[ci], hw,
+                  want.cell_time[ci], want.cell_tile_idx[ci], got.cell_time[ci],
+                  got.cell_tile_idx[ci], rtol)
+    g = want.gflops()  # the oracle's numbers judge both answers
+    assert got_resp.best_gflops == pytest.approx(want_resp.best_gflops, rel=rtol)
+    assert g[got_resp.best_index] >= g[want_resp.best_index] * (1 - rtol)
+    # a point on one front and not the other is a tie within rtol
+    front_got, front_want = set(got_resp.pareto_indices), set(want_resp.pareto_indices)
+    for extra, other in ((front_got - front_want, front_want), (front_want - front_got, front_got)):
+        for i in extra:
+            assert any(hw.area[j] <= hw.area[i] and g[j] >= g[i] * (1 - rtol) for j in other), i

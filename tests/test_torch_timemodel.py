@@ -151,3 +151,28 @@ def test_pareto_matches_reference(seed):
     )
     for a, b in zip(pareto.pareto_front(cost, perf[2]), j_pareto.pareto_front(cost, perf[2])):
         np.testing.assert_array_equal(a, b)
+
+
+def test_no_tensor_and_no_device_means_the_card():
+    """With ``xp=torch``, no tensor argument and no ``device``, the model
+    evaluates on the card: without one it raises, and ``device="cpu"``
+    runs it on the CPU."""
+    st, gpu = tm.STENCILS["heat3d"], tm.MAXWELL_GPU
+    size = tm.ProblemSize(256, 256, 64, s3=256)
+    hw, tiles = (16.0, 128.0, 96.0), (8.0, 32.0, 2.0, 1.0, 8.0)
+    calls = (
+        lambda **kw: tm.stencil_time(st, gpu, size, *hw, *tiles, xp=torch, **kw),
+        lambda **kw: tm.feasible(st, gpu, *hw, *tiles, xp=torch, **kw),
+        lambda **kw: tm.footprint_bytes(st, gpu, 8.0, 32.0, 2.0, 8.0, xp=torch, **kw),
+    )
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+        assert call(device="cpu").device.type == "cpu"
+    want = jtm.stencil_time(jtm.STENCILS["heat3d"], jtm.MAXWELL_GPU,
+                            jtm.ProblemSize(256, 256, 64, s3=256), *hw, *tiles)
+    got = tm.stencil_time(st, gpu, size, *hw, *tiles, xp=torch, dtype=torch.float64, device="cpu")
+    assert float(got) == float(want)
