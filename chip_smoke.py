@@ -29,7 +29,22 @@ the sweep again on the calibrated machine. Phases:
    ``server_from_artifact`` to 64 seeded mixes from threads (microbatched)
    and one at a time; a ``CodesignServer`` at the stock GTX-980 spec whose
    miss path sweeps on the card, and a second server over the same store
-   that answers warm with phase 3's best point.
+   that answers warm with phase 3's best point;
+8. the fleet gateway over HTTP, driven through ``python -m
+   repro_torch.service.cli`` child processes: ``build --engine torch`` for
+   gtx980 and titanx at full width (sweeps on the card), ``portfolio --k 2
+   --budget 900 --objective throughput`` over each (its default engine
+   scores on the card) held against the numpy oracle on the stored
+   matrix, then ``serve --port 0``: 64 seeded mixes over ``/v1/query`` one
+   at a time and from 64 threads, one ``/v1/query_many`` of 64 and
+   ``/v1/route`` for every cell group, each byte-identical to the
+   in-process servers (batched answers but for their ``batch_size``);
+   metrics, SLO and health scrapes; ``unknown_artifact`` and
+   ``bad_request``; a second child with ``--rate-limit 1`` (429 +
+   ``Retry-After``) and a third with ``REPRO_FAULTS`` arming one
+   portfolio member (degraded routing, then recovery). It launches no
+   stencil kernel, by construction: the sweeps and the portfolio scoring
+   are torch ops that call no kernel wrapper.
 
 The launch counters are set to 0 just before phase 3 and read just after
 phase 5, and again just before and after phase 7: every kernel must have
@@ -708,6 +723,294 @@ def phase7_served(analytic, smi):
             f"{warm_resp.best_gflops:.1f} GFLOP/s (model prediction) = phase 3's")
     return build_s
 
+class _Serve:
+    """One ``repro_torch.service.cli serve --port 0`` child; its URL is read
+    off its stdout. Stopped (terminate, then kill) on exit."""
+
+    def __init__(self, root, *flags, env=None):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.service.cli", "serve", "--store", root,
+             "--port", "0", *flags],
+            stdout=subprocess.PIPE, text=True, env=env)
+        self.url = None
+        try:
+            for line in self.proc.stdout:  # the bound address is printed last
+                if line.startswith("serving on "):
+                    self.url = line.split()[-1]
+                    break
+            check(self.url is not None, "serve printed its bound address")
+        except BaseException:
+            self.__exit__()
+            raise
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.proc.stdout.close()
+
+
+def _post(url, body, path="/v1/query"):
+    """(status, headers, body) of one POST without the client's retries."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=body, method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def phase8_gateway(smi):
+    """The fleet gateway over HTTP, from child processes of the port's
+    service CLI: full-width torch builds for gtx980 and titanx, a K=2
+    portfolio over each scored on the card (the CLI's default engine) and
+    held against the numpy oracle, then ``serve`` answering /v1/query, /v1/query_many and
+    /v1/route byte-identically to the in-process servers, its metrics,
+    SLO, errors, rate limit and a member fault. Returns the build seconds
+    per GPU."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core.portfolio import optimize_portfolio_arrays
+    from repro_torch.service import (
+        ArtifactStore,
+        CodesignServer,
+        GatewayClient,
+        PortfolioServer,
+        QueryRequest,
+        RetryPolicy,
+        RouteRequest,
+        wire,
+    )
+
+    say("== phase 8: the fleet gateway over HTTP (service CLI children on the card)")
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    gpus = ("gtx980", "titanx")
+    budget = 900.0
+
+    def run_cli(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.service.cli", *args],
+                           capture_output=True, text=True, env=env, timeout=600)
+        check(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: {r.stderr.strip()}")
+        return r.stdout.strip(), time.perf_counter() - t0
+
+    build_s = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-gateway-") as root:
+        store = ArtifactStore(root)
+        sweeps, portfolios = {}, {}
+        for gpu in gpus:
+            base = ("--store", root, "--gpu", gpu, "--engine", "torch")
+            out, wall = run_cli("build", *base)
+            build_s[gpu] = wall
+            say(f"gateway: build --gpu {gpu} --engine torch (child process, sweep on the card): "
+                f"{out} ; child wall {wall:.3f} s [{smi}]")
+            out, wall = run_cli("portfolio", *base, "--k", "2", "--budget", str(budget),
+                                "--objective", "throughput")
+            say(f"  portfolio (default engine, torch on the card): {out} ; child wall {wall:.3f} s")
+        for row in store.entries():
+            art = store.get(row["key"])
+            if row["kind"] == "sweep":
+                check((art.n_cells, art.n_hw) == (96, 5121), f"{row['gpu']} sweep at full width")
+                check(art.manifest["spec"]["engine"] == "torch", "sweep built by the torch engine")
+                sweeps[row["gpu"]] = art
+            else:
+                portfolios[row["gpu"]] = art
+        check(sorted(sweeps) == sorted(portfolios) == sorted(gpus), "a sweep and a portfolio per GPU")
+
+        # each stored torch portfolio against the numpy oracle on the same stored matrix
+        for gpu in gpus:
+            sw, pf = sweeps[gpu], portfolios[gpu].payload
+            check(pf["sweep_key"] == sw.key and pf["engine"] == "torch", f"{gpu}: portfolio of the sweep")
+            args = (sw.hw_area, sw.cell_time, sw.cell_flops(), sw.cell_freqs(), 2, budget)
+            t0 = time.perf_counter()
+            oracle = optimize_portfolio_arrays(*args, objective="throughput", engine="numpy")
+            numpy_s = time.perf_counter() - t0
+            torch_s = []
+            for _ in range(2):  # cold (first call in this process), then warm
+                t0 = time.perf_counter()
+                mine = optimize_portfolio_arrays(*args, objective="throughput", engine="torch")
+                torch_s.append(time.perf_counter() - t0)
+            check(mine.members == tuple(pf["members"]), f"{gpu}: in-process torch = stored portfolio")
+            check(tuple(pf["candidates"]) == oracle.candidates,
+                  f"{gpu}: the card's dominance mask = numpy's")
+            if oracle.members == tuple(pf["members"]):
+                check(pf["fleet_gflops"] == oracle.fleet_gflops, f"{gpu}: same members, same fleet")
+                tie = "same members"
+            else:  # float64 sums in another order: a tie to the last bits only
+                check(math.isclose(pf["fleet_gflops"], oracle.fleet_gflops, rel_tol=1e-12),
+                      f"{gpu}: other members only on a tie within 1e-12")
+                tie = f"oracle names {oracle.members}, a tie within 1e-12"
+            n_cand = len(oracle.candidates)
+            subsets = sw.n_hw + math.comb(n_cand, 2)
+            f = sw.cell_freqs()
+            g = (f @ sw.cell_flops()) / (f @ np.asarray(sw.cell_time, np.float64)) / 1.0e9
+            single = float(np.max(np.where(sw.hw_area <= budget, g, -np.inf)))
+            check(pf["fleet_gflops"] >= single * (1 - 1e-12), f"{gpu}: fleet >= best single design")
+            say(f"gateway: portfolio {gpu} K=2 budget {budget:g} throughput: candidates {n_cand} "
+                f"of {sw.n_hw}, subsets scored {subsets}, members {tuple(pf['members'])} ({tie}), "
+                f"fleet {pf['fleet_gflops']:.1f} GFLOP/s, best single {single:.1f} GFLOP/s "
+                f"(model predictions); in process: numpy oracle {numpy_s:.3f} s, torch on the "
+                f"card {torch_s[0]:.3f} s cold / {torch_s[1]:.3f} s warm [{smi}]")
+
+        oracles = {gpu: CodesignServer.from_artifact(store, sweeps[gpu], batch_window=0.0)
+                   for gpu in gpus}
+        routers = {gpu: PortfolioServer(portfolios[gpu], sweeps[gpu]) for gpu in gpus}
+        names = sweeps[gpus[0]].stencil_names
+        rng = np.random.default_rng(8)
+        reqs = [QueryRequest(freqs=dict(zip(names, rng.uniform(0.1, 1.0, size=len(names)).tolist())),
+                             max_area=float(rng.uniform(350.0, 650.0)), top_k=3, pareto=True,
+                             use_cache=False) for _ in range(64)]
+        routes = [{"gpu": gpus[i % 2]} for i in range(len(reqs))]
+        lone = [oracles[r["gpu"]].query(q) for q, r in zip(reqs, routes)]
+        want = [wire.encode_response(resp) for resp in lone]
+
+        def same_as_lone(i, resp):
+            """Bytes equal to the lone in-process answer, but for the
+            ``batch_size`` a microbatched answer reports."""
+            return wire.encode_response(resp) == wire.encode_response(
+                dataclasses.replace(lone[i], batch_size=resp.batch_size))
+
+        with _Serve(root, env=env) as srv:
+            client = GatewayClient(srv.url)
+            check(client.health()["artifacts"] == 4, "healthz sees both sweeps and both portfolios")
+            seq_lat = []
+            t0 = time.perf_counter()
+            for i, q in enumerate(reqs):
+                t = time.perf_counter()
+                raw = client.query_bytes(q, route=routes[i])
+                seq_lat.append(time.perf_counter() - t)
+                check(raw == want[i], f"HTTP query {i} byte-identical to the in-process answer")
+            seq_qps = len(reqs) / (time.perf_counter() - t0)
+
+            got, lat = [None] * len(reqs), [0.0] * len(reqs)
+            barrier = threading.Barrier(len(reqs))
+
+            def worker(i):
+                c = GatewayClient(srv.url, retry=None)
+                barrier.wait()
+                t = time.perf_counter()
+                got[i] = c.query(reqs[i], route=routes[i])
+                lat[i] = time.perf_counter() - t
+                c.close()
+
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(reqs))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            par_qps = len(reqs) / (time.perf_counter() - t0)
+            for i, resp in enumerate(got):
+                check(resp is not None and same_as_lone(i, resp),
+                      f"threaded HTTP query {i} equals the lone in-process answer")
+            max_batch = max(r.batch_size for r in got)
+
+            t0 = time.perf_counter()
+            many = client.query_many([(q, None, r) for q, r in zip(reqs, routes)])
+            many_s = time.perf_counter() - t0
+            for i, resp in enumerate(many):
+                check(same_as_lone(i, resp), f"query_many element {i} equals the lone answer")
+            say(f"  64 queries one at a time, from 64 threads (largest batch {max_batch}) and in one "
+                f"/v1/query_many (batch {max(r.batch_size for r in many)}): each equals the lone "
+                f"in-process answer byte for byte (batched answers but for their batch_size)")
+
+            n_routes = 0
+            for gpu in gpus:
+                for cell in routers[gpu].cell_labels():
+                    rq = RouteRequest(cell=cell)
+                    raw = client.route_bytes(rq, route={"gpu": gpu})
+                    check(raw == wire.encode_route_response(routers[gpu].route(rq)),
+                          f"/v1/route {gpu}/{cell} byte-identical to the in-process router")
+                    n_routes += 1
+            say(f"  /v1/route for all {n_routes} cell groups of both portfolios: byte-identical")
+
+            snap = client.metrics()
+            n_query = sum(s["value"] for s in snap["repro_gateway_requests_total"]["samples"]
+                          if s["labels"].get("route") == "/v1/query")
+            check(n_query == 2 * len(reqs), f"/v1/query counter {n_query} = {2 * len(reqs)} sent")
+            slo = client.slo()["routes"]["/v1/query"]
+            check(slo["windows"]["1h"]["count"] == 2 * len(reqs), "/v1/slo counted the queries")
+            check(all(math.isfinite(w["availability_burn"]) and math.isfinite(w["latency_burn"])
+                      for w in slo["windows"].values()), "finite burn rates")
+            health = client.health()
+            check(health["ok"] and health["slo"] in ("ok", "burning", "violated"), "healthz")
+            w1h = slo["windows"]["1h"]
+            say(f"  metrics: /v1/query counter {n_query:g}; /v1/slo status {slo['status']}, 1h: "
+                f"p99 estimate {w1h['p_estimate_s'] * 1e3:.3f} ms, availability burn "
+                f"{w1h['availability_burn']:g}, latency burn {w1h['latency_burn']:g}; "
+                f"healthz slo {health['slo']}")
+
+            try:
+                client.query(reqs[0], artifact="0" * 20)
+                check(False, "an unknown artifact must answer an error")
+            except wire.RemoteError as e:
+                check(e.code == "unknown_artifact" and e.http_status == 404, "404 unknown_artifact")
+            status, _, body = _post(srv.url, b"{not json")
+            check(status == 400 and json.loads(body)["error"]["code"] == "bad_request",
+                  "400 bad_request")
+            check(client.query_bytes(reqs[0], route=routes[0]) == want[0] and client.health()["ok"],
+                  "the server answers as before after the errors")
+            client.close()
+
+        body = wire.encode_request(reqs[0], route=routes[0])
+        with _Serve(root, "--rate-limit", "1", env=env) as srv:
+            first, _, raw = _post(srv.url, body)
+            status, headers, err = _post(srv.url, body)
+            check(first == 200 and raw == want[0], "first request rides the burst token")
+            check(status == 429 and json.loads(err)["error"]["code"] == "rate_limited",
+                  "a drained bucket answers 429 rate_limited")
+            check(int(headers.get("Retry-After", 0)) >= 1, "429 carries Retry-After")
+            retrying = GatewayClient(srv.url, retry=RetryPolicy(max_retries=3))
+            check(retrying.query_bytes(reqs[0], route=routes[0]) == want[0],
+                  "a client honouring Retry-After succeeds byte-identically")
+        say(f"  --rate-limit 1: 429 rate_limited with Retry-After {headers.get('Retry-After')}; "
+            f"the retrying client then got the byte-identical answer")
+
+        gpu = gpus[0]
+        router = routers[gpu]
+        cell = router.cell_labels()[0]
+        healthy = router.route(RouteRequest(cell=cell))
+        check(len(router.members) == 2, f"{gpu}: a two-member portfolio to degrade")
+        hw = healthy.hw_index
+        faults = {f"route.member.{hw}": {"error": "RuntimeError:member down", "count": 3}}
+        with _Serve(root, env=dict(env, REPRO_FAULTS=json.dumps(faults))) as srv:
+            client = GatewayClient(srv.url)
+            for _ in range(3):
+                resp = client.route(cell, route={"gpu": gpu})
+                check(resp.degraded and resp.fallback_from == (hw,) and resp.hw_index != hw
+                      and resp.hw_index in router.members,
+                      f"route.member.{hw} armed: {cell} degrades onto the other member")
+            raw = client.route_bytes(RouteRequest(cell=cell), route={"gpu": gpu})
+            check(raw == wire.encode_route_response(healthy),
+                  "the fault cleared: routing recovers byte-identically")
+            client.close()
+        say(f"  route.member.{hw} armed 3 times: {cell} served degraded by hw {resp.hw_index}, "
+            f"then recovered onto hw {hw}")
+
+        say(f"gateway: HTTP /v1/query one at a time {seq_qps:.1f} q/s, p50 "
+            f"{_pct(seq_lat, 50) * 1e3:.3f} ms, p99 {_pct(seq_lat, 99) * 1e3:.3f} ms [{smi}]")
+        say(f"gateway: HTTP /v1/query from 64 threads (batch window 2 ms) {par_qps:.1f} q/s, p50 "
+            f"{_pct(lat, 50) * 1e3:.3f} ms, p99 {_pct(lat, 99) * 1e3:.3f} ms [{smi}]")
+        say(f"gateway: HTTP /v1/query_many of 64 {many_s * 1e3:.3f} ms [{smi}]")
+    return build_s
+
 
 def main() -> int:
     import torch
@@ -753,9 +1056,12 @@ def main() -> int:
         check(served_launches[kernel] > 0, f"{kernel} was not launched on the served path")
     for kernel, row in kernels.items():
         row["launches"] += served_launches[kernel]
+
+    gateway_build_s = phase8_gateway(smi)  # launches no stencil kernel (see phase 8)
     say(f"seconds: sweep {sweep_s:.3f}, measure {measure_s:.2f}, fit {fit_s:.2f}, "
-        f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, "
-        f"total {time.perf_counter() - t_start:.1f}")
+        f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, gateway builds "
+        + ", ".join(f"{g} {t:.3f}" for g, t in gateway_build_s.items())
+        + f", total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

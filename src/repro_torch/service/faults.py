@@ -18,9 +18,8 @@ named injection points that production code consults via cheap hooks:
   ``serve`` child process). An unset env and an empty registry mean
   every hook is a no-op.
 
-Injection points wired into the port so far (each documented where it
-is called; the JAX package's gateway and portfolio points come with those
-modules):
+Injection points wired into the stack (each documented where it is
+called), the JAX package's own:
 
 ========================  ==================================================
 ``store.open``            :meth:`repro_torch.service.store.ArtifactStore.get`
@@ -30,6 +29,13 @@ modules):
 ``server.batch``          the microbatch leader's flush in
                           :mod:`repro_torch.service.server` -- slow/failing
                           batch answers (slow-follower symptom)
+``gateway.drop_socket``   the HTTP handler -- close the connection without
+                          answering (client sees a reset/EOF)
+``route.member.<hw>``     :meth:`repro_torch.service.portfolio
+                          .PortfolioServer.route` -- fail one portfolio
+                          member (hardware index ``<hw>``) so routing
+                          degrades onto the next-preferred design instead
+                          of erroring
 ========================  ==================================================
 
 Fault spec fields: ``latency_s`` (sleep before proceeding), ``error``

@@ -201,3 +201,34 @@ def test_server_builds_torch_sweep_on_the_card(card, tmp_path):
     for extra, other in ((front_got - front_want, front_want), (front_want - front_got, front_got)):
         for i in extra:
             assert any(hw.area[j] <= hw.area[i] and g[j] >= g[i] * (1 - rtol) for j in other), i
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_portfolio_torch_engine_on_the_card(card, k):
+    """The torch portfolio engine on the card against the numpy oracle on
+    the same matrix (a torch sweep of 641 points, stride 8): the float64
+    dominance mask is the oracle's exactly, and each fleet is the oracle's
+    or, on a tie to the last bits of float64, equal in objective within
+    1e-12. The torch engine is the default; the oracle is asked for."""
+    import numpy as np
+
+    from repro_torch.core import codesign, enumerate_hw_space, paper_workload
+    from repro_torch.core.portfolio import (
+        OBJECTIVES,
+        optimize_portfolio,
+        portfolio_candidates,
+    )
+
+    res = codesign(paper_workload(), hw=enumerate_hw_space().downsample(8), engine="torch")
+    mask = portfolio_candidates(res.hw.area, res.cell_time)
+    np.testing.assert_array_equal(portfolio_candidates(res.hw.area, res.cell_time, device=card), mask)
+    for objective in OBJECTIVES:
+        for budget in (450.0, 900.0):
+            want = optimize_portfolio(res, k, budget, objective=objective, engine="numpy")
+            got = optimize_portfolio(res, k, budget, objective=objective)
+            assert got.candidates == want.candidates == tuple(np.nonzero(mask)[0])
+            if got.members == want.members:
+                assert got.payload() == {**want.payload(), "engine": "torch"}
+            else:
+                attr = "fleet_density" if objective == "density" else "fleet_gflops"
+                assert getattr(got, attr) == pytest.approx(getattr(want, attr), rel=1e-12)
