@@ -44,11 +44,28 @@ the sweep again on the calibrated machine. Phases:
    ``Retry-After``) and a third with ``REPRO_FAULTS`` arming one
    portfolio member (degraded routing, then recovery). It launches no
    stencil kernel, by construction: the sweeps and the portfolio scoring
-   are torch ops that call no kernel wrapper.
+   are torch ops that call no kernel wrapper;
+9. LM-workload codesign (model predictions for the modelled fleet of
+   ``repro_torch.core.lmtime.HW``): ``lm_codesign(engine="torch")`` over
+   the default question (Llama-3-8B + Mixtral-8x22B, 7 cells, 512 chips)
+   in float64 on the card, held to the numpy oracle (times within 1e-12
+   relative, another plan only on a tie); the docs' question (Llama-3-8B
+   decode at batch 64 under 64 chips) through an ``LMServer`` whose miss
+   path sweeps on the card, answering ``pod=1 data=4 model=16`` as its
+   ``best_index`` (``pod=2 data=2 model=16`` ties with it); ``build
+   --workload lm --engine torch`` and ``portfolio --k 2 --budget 512
+   --objective throughput`` as children, held against the in-process sweep
+   and the numpy portfolio oracle; a ``serve`` child answering LM queries
+   routed by ``{"workload": "lm"}``, a stencil query and ``/v1/route``
+   beside them, byte-identically to the in-process servers; Llama-3-8B's
+   whole parameter tree drawn on the card in bf16 from a seeded
+   ``torch.Generator`` (its bytes = 2 x ``count_params``). No kernel lies
+   on this path; the counters are read around it all the same.
 
 The launch counters are set to 0 just before phase 3 and read just after
 phase 5, and again just before and after phase 7: every kernel must have
-been launched on the main path, and K1/K2 on the served path. A failed
+been launched on the main path, and K1/K2 on the served path; they are
+set to 0 before phase 9 and printed after it. A failed
 check raises; nothing is caught. The last three lines are a JSON object of
 per-kernel numbers (launches: main path plus served path), the card's name
 and power limit as ``nvidia-smi`` gives them, and the device record.
@@ -1012,6 +1029,219 @@ def phase8_gateway(smi):
     return build_s
 
 
+def _lm_tie_check(wl, hw, want, got, rtol=1e-12):
+    """The torch LM sweep against the numpy oracle: the same feasibility,
+    times within ``rtol`` relative, and a plan index that differs only
+    where the scalar oracle times the torch engine's plan the same."""
+    import numpy as np
+
+    from repro_torch.core.lmcells import lm_cell_roofline, lm_sw_lattice
+
+    feas = np.isfinite(want.cell_time)
+    check(np.array_equal(np.isfinite(got.cell_time), feas), "LM torch: the oracle's feasibility")
+    err = float(np.max(np.abs(got.cell_time[feas] - want.cell_time[feas]) / want.cell_time[feas]))
+    check(err <= rtol, f"LM torch times within rel {rtol} of numpy (max {err:.3g})")
+    ties = 0
+    for ci, hi in zip(*np.nonzero(got.cell_plan_idx != want.cell_plan_idx)):
+        cell, pt = wl.cells[ci], hw.point(int(hi))
+        plan = lm_sw_lattice(cell.op).plan(pt["pod"], pt["data"], pt["model"],
+                                           int(got.cell_plan_idx[ci, hi]))
+        t = lm_cell_roofline(cell, plan)["bound_s"]
+        check(abs(t - want.cell_time[ci, hi]) <= rtol * want.cell_time[ci, hi],
+              f"LM torch plan {ci},{hi}: another plan only on a tie")
+        ties += 1
+    return err, ties
+
+
+def phase9_lm(smi):
+    """LM-workload codesign on the card: the default question (Llama-3-8B +
+    Mixtral-8x22B, 7 cells, 512 chips) with the float64 torch engine held
+    to the numpy oracle; the docs' question (Llama-3-8B decode at batch 64
+    under 64 chips) through an ``LMServer`` whose miss path sweeps on the
+    card; ``python -m repro_torch.service.cli build --workload lm --engine
+    torch`` and a K=2 ``portfolio`` over it as children; a ``serve`` child
+    answering LM queries (``{"workload": "lm"}``) beside a stencil sweep
+    in the same store, byte-identically to the in-process servers; and
+    Llama-3-8B's full parameter tree materialised on the card in bf16."""
+    import math
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.lmcells import enumerate_lm_hw_space, lm_codesign, lm_workload
+    from repro_torch.core.portfolio import optimize_portfolio_arrays
+    from repro_torch.models import Model, count_params
+    from repro_torch.service import (
+        ArtifactStore,
+        CodesignServer,
+        GatewayClient,
+        LMServer,
+        PortfolioServer,
+        QueryRequest,
+        RouteRequest,
+        server_from_artifact,
+        wire,
+    )
+
+    say("== phase 9: LM-workload codesign on the card (model predictions for the modelled fleet)")
+    wl, hw = lm_workload(), enumerate_lm_hw_space(512)
+    check((len(wl.cells), len(hw)) == (7, 100), "the default LM question: 7 cells x 100 meshes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = lm_codesign(wl, hw=hw, engine="numpy")
+    numpy_s = time.perf_counter() - t0
+    torch_s = []
+    for _ in range(2):  # cold (the first torch LM sweep of the process), then warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = lm_codesign(wl, hw=hw, engine="torch")
+        torch.cuda.synchronize()
+        torch_s.append(time.perf_counter() - t0)
+    err, ties = _lm_tie_check(wl, hw, want, got)
+    i, g = got.best()
+    wi, wg = want.best()
+    check(i == wi and abs(g - wg) <= 1e-12 * abs(wg), "LM torch best point = numpy's")
+    p = hw.point(i)
+    say(f"lm: lm_codesign 512 chips (7 cells x 100 meshes): torch on the card {torch_s[0]:.4f} s "
+        f"cold / {torch_s[1]:.4f} s warm, numpy {numpy_s:.4f} s; max rel time diff {err:.3g}, "
+        f"plans that differ on a tie {ties}; best pod={p['pod']} data={p['data']} "
+        f"model={p['model']} {g:.1f} GFLOP/s (model prediction) [{smi}]")
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+
+    def run_cli(*args):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.service.cli", *args],
+                           capture_output=True, text=True, env=env, timeout=600)
+        check(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: {r.stderr.strip()}")
+        return r.stdout.strip(), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-docs-") as docs_root:
+        docs_store = ArtifactStore(docs_root)
+        # the docs' question: 49 meshes, so auto would pick numpy; force torch
+        docs = LMServer(docs_store, workload=lm_workload(archs=("llama3-8b",)), max_chips=64,
+                        engine="torch", batch_window=0.0)
+        check(len(docs.hw) == 49 and not docs.warm, "the docs' question: 49 meshes, not stored")
+        req = QueryRequest(freqs={"llama3-8b:decode": 1.0}, max_area=64.0, top_k=3)
+        t0 = time.perf_counter()
+        resp = docs.query(req)
+        docs_s = time.perf_counter() - t0
+        check(docs.stats["artifact_builds"] == 1, "the docs' LMServer built once, on the card")
+        check(docs_store.get(docs.key).manifest["spec"]["engine"] == "torch", "docs' sweep keyed torch")
+        bp = resp.best_point
+        check((bp["pod"], bp["data"], bp["model"]) == (1, 4, 16), f"docs' best point {bp}")
+        tie = [t for t in resp.top_k if (t["pod"], t["data"], t["model"]) == (2, 2, 16)]
+        check(len(tie) == 1 and tie[0]["gflops"] == resp.best_gflops,
+              "pod=2 data=2 model=16 ties with the best point")
+        say(f"lm: docs' question (llama3-8b decode, batch 64, <= 64 chips; LMServer miss path, "
+            f"torch sweep on the card) {docs_s:.3f} s: best_index {resp.best_index} = pod=1 data=4 "
+            f"model=16, {resp.best_gflops:.1f} GFLOP/s (model prediction), tied by pod=2 data=2 "
+            f"model=16 [{smi}]")
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-") as root:
+        store = ArtifactStore(root)
+        base = ("--store", root, "--workload", "lm", "--engine", "torch")
+        out, build_wall = run_cli("build", *base)
+        say(f"lm: build --workload lm --engine torch (child, sweep on the card): {out} ; "
+            f"child wall {build_wall:.3f} s [{smi}]")
+        out, pf_wall = run_cli("portfolio", *base, "--k", "2", "--budget", "512",
+                               "--objective", "throughput")
+        say(f"  portfolio --k 2 --budget 512 --objective throughput (default engine, torch on "
+            f"the card): {out} ; child wall {pf_wall:.3f} s")
+        lm_key = store.key_for_lm(wl, hw, "torch")
+        lm_art = store.get(lm_key)
+        check(lm_art is not None and lm_art.family == "lm", "the child stored the torch LM sweep")
+        stored = lm_art.to_result()
+        check(np.array_equal(stored.cell_time, got.cell_time)
+              and np.array_equal(stored.cell_plan_idx, got.cell_plan_idx),
+              "the child's torch LM sweep = the in-process torch sweep")
+        (pf,) = [store.get(r["key"]) for r in store.entries() if r["kind"] == "portfolio"]
+        check(pf.payload["sweep_key"] == lm_key and pf.payload["engine"] == "torch",
+              "the LM portfolio of the stored sweep, scored by torch")
+        oracle = optimize_portfolio_arrays(lm_art.hw_area, lm_art.cell_time, lm_art.cell_flops(),
+                                           lm_art.cell_freqs(), 2, 512.0, objective="throughput",
+                                           engine="numpy")
+        if oracle.members == tuple(pf.payload["members"]):
+            check(pf.payload["fleet_gflops"] == oracle.fleet_gflops, "LM portfolio = the oracle's")
+        else:
+            check(math.isclose(pf.payload["fleet_gflops"], oracle.fleet_gflops, rel_tol=1e-12),
+                  "LM portfolio: other members only on a tie within 1e-12")
+        members = [hw.point(m) for m in pf.payload["members"]]
+        say(f"  LM portfolio members {tuple(pf.payload['members'])} "
+            f"({', '.join('pod=%d data=%d model=%d' % (m['pod'], m['data'], m['model']) for m in members)}), "
+            f"fleet {pf.payload['fleet_gflops']:.1f} GFLOP/s (model prediction); numpy oracle "
+            f"names {oracle.members}")
+
+        stencil = CodesignServer(store, engine="torch", batch_window=0.0)
+        stencil.ensure_artifact()  # the full-width stencil sweep, on the card
+        lm_srv = server_from_artifact(store, lm_art, batch_window=0.0)
+        router = PortfolioServer(pf, lm_art)
+        labels = [c.label for c in wl.cells]
+        rng = np.random.default_rng(9)
+        lm_reqs = [QueryRequest(freqs=dict(zip(labels, rng.uniform(0.1, 1.0, len(labels)).tolist())),
+                                max_area=float(rng.choice([128.0, 256.0, 512.0])), top_k=3,
+                                pareto=True, use_cache=False) for _ in range(16)]
+        lm_reqs += [QueryRequest(freqs={"llama3-8b:decode": 1.0}, max_area=64.0, top_k=3),
+                    QueryRequest(freqs={"mixtral-8x22b": 1.0}, fix={"model": 8.0}),
+                    QueryRequest(freqs={"train": 1.0}, max_area=0.5)]
+        st_req = QueryRequest(max_area=450.0, top_k=3, pareto=True, use_cache=False)
+        with _Serve(root, env=env) as srv:
+            client = GatewayClient(srv.url)
+            lat = []
+            for q in lm_reqs:
+                t = time.perf_counter()
+                raw = client.query_bytes(q, route={"workload": "lm"})
+                lat.append(time.perf_counter() - t)
+                check(raw == wire.encode_response(lm_srv.query(q)),
+                      "HTTP LM query byte-identical to the in-process LMServer")
+            check(client.query_bytes(st_req, route={"family": "stencil"})
+                  == wire.encode_response(stencil.query(st_req)),
+                  "the stencil sweep beside it answers byte-identically")
+            for cell in router.cell_labels():
+                rq = RouteRequest(cell=cell)
+                check(client.route_bytes(rq, route={"workload": "lm"})
+                      == wire.encode_route_response(router.route(rq)),
+                      f"/v1/route {cell} byte-identical to the in-process router")
+            rows = {r["key"]: r for r in client.artifacts()}
+            check(rows[lm_key]["family"] == "lm" and rows[stencil.key].get("family", "stencil")
+                  == "stencil", "/v1/artifacts lists both families")
+            client.close()
+        say(f"lm: serve child: {len(lm_reqs)} LM /v1/query ({{\"workload\": \"lm\"}}) byte-identical "
+            f"to the in-process LMServer, p50 {_pct(lat, 50) * 1e3:.3f} ms, p99 "
+            f"{_pct(lat, 99) * 1e3:.3f} ms; the stencil sweep beside it and /v1/route for "
+            f"{len(router.cell_labels())} LM cell groups byte-identical [{smi}]")
+
+    cfg = get_arch("llama3-8b")
+    n = count_params(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = list(model.parameters())
+    nbytes = sum(q.numel() * q.element_size() for q in params)
+    check(all(q.is_cuda and q.dtype == torch.bfloat16 for q in params), "llama3-8b in bf16 on the card")
+    check(nbytes == 2 * n, f"llama3-8b tree bytes {nbytes} = 2 x count_params {n}")
+    check(all(bool(torch.isfinite(q).all()) for q in params), "llama3-8b parameters finite")
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    say(f"lm: llama3-8b parameter tree on the card: {len(params)} tensors, {n} parameters, "
+        f"{nbytes} B = 2 x count_params (bf16); init {init_s:.3f} s (seeded torch.Generator); "
+        f"torch.cuda.max_memory_allocated {peak} B above the {base_mem} B held before [{smi}]")
+    del model, params
+    torch.cuda.empty_cache()
+    return {"lm_torch_cold_s": torch_s[0], "lm_torch_warm_s": torch_s[1], "lm_numpy_s": numpy_s,
+            "docs_s": docs_s, "build_wall_s": build_wall, "portfolio_wall_s": pf_wall,
+            "init_s": init_s}
+
+
+
 def main() -> int:
     import torch
 
@@ -1058,9 +1288,15 @@ def main() -> int:
         row["launches"] += served_launches[kernel]
 
     gateway_build_s = phase8_gateway(smi)  # launches no stencil kernel (see phase 8)
+
+    _build.reset_launches()  # the LM path starts here
+    lm_s = phase9_lm(smi)
+    torch.cuda.synchronize()
+    say(f"LM path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
     say(f"seconds: sweep {sweep_s:.3f}, measure {measure_s:.2f}, fit {fit_s:.2f}, "
         f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, gateway builds "
         + ", ".join(f"{g} {t:.3f}" for g, t in gateway_build_s.items())
+        + ", LM " + ", ".join(f"{k} {v:.3f}" for k, v in lm_s.items())
         + f", total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

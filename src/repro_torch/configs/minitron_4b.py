@@ -1,0 +1,20 @@
+"""minitron-4b [dense]: pruned nemotron, GQA, squared-ReLU MLP.
+[arXiv:2407.14679; hf]"""
+
+from .base import ArchConfig, register
+
+CONFIG = register(
+    ArchConfig(
+        name="minitron-4b",
+        family="dense",
+        n_layers=32,
+        d_model=3072,
+        n_heads=24,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=9216,
+        vocab=256000,
+        act="relu2",  # nemotron squared-ReLU
+        source="arXiv:2407.14679; hf",
+    )
+)

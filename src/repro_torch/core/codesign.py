@@ -1,4 +1,4 @@
-"""The codesign optimization driver (paper §IV, eqs. 7-18), stencil family.
+"""The codesign optimization driver (paper §IV, eqs. 7-18).
 
 Eq. (18)'s separability: every hardware point of ``HP`` x an independent
 tile-size minimization per (stencil, size) cell. The per-cell optima are
@@ -17,7 +17,8 @@ The inner solves run on one of two engines:
 ``engine="auto"`` keeps the JAX package's rule: numpy below
 :data:`_AUTO_MIN_HW` hardware points, the torch engine otherwise. It never
 chooses numpy or the CPU because no card was found: the torch engine then
-raises.
+raises. LM op-graph workloads dispatch to :mod:`repro_torch.core.lmcells`
+under the same engine rule.
 """
 
 from __future__ import annotations
@@ -383,7 +384,26 @@ def codesign(
     unless ``device="cpu"``), ``"numpy"`` (float64 oracle) or ``"auto"``
     (numpy below :data:`_AUTO_MIN_HW` points, else torch). ``chunk`` bounds
     the hardware points per slab; ``None`` uses each engine's default.
+
+    Dispatches on the workload's cell family: LM op-graph workloads
+    (``workload.family == "lm"``) route to :func:`repro_torch.core.lmcells
+    .lm_codesign`, whose hardware axis is mesh factorizations of a chip
+    budget (``hw`` must then be an :class:`~repro_torch.core.lmcells
+    .LMHardwareSpace` or None); the stencil-specific knobs (gpu, area
+    model, tile lattices, chunk) do not apply there.
     """
+    if workload.family == "lm":
+        from .lmcells import lm_codesign, resolve_lm_engine
+
+        t0 = time.perf_counter()
+        with span("codesign", family="lm"):
+            result = lm_codesign(workload, hw=hw, engine=engine, device=device)
+        eng = resolve_lm_engine(engine, len(result.hw))
+        _M_CODESIGN_SECONDS.labels(engine=eng, family="lm").observe(
+            time.perf_counter() - t0
+        )
+        _M_CODESIGN_CELLS.labels(engine=eng).inc(len(workload.cells))
+        return result
     if workload.family != "stencil":
         raise ValueError(f"unsupported cell family {workload.family!r}")
     if hw is None:

@@ -146,6 +146,7 @@ class _NumpyOps:
     ceil = staticmethod(np.ceil)
     maximum = staticmethod(np.maximum)
     minimum = staticmethod(np.minimum)
+    mod = staticmethod(np.mod)
     ones_like = staticmethod(np.ones_like)
     where = staticmethod(np.where)
 
@@ -176,6 +177,9 @@ class _TorchOps:
 
     def minimum(self, a, b):
         return torch.minimum(self.asarray(a), self.asarray(b))
+
+    def mod(self, a, b):
+        return torch.remainder(self.asarray(a), self.asarray(b))
 
     def where(self, ok, a, b):
         if isinstance(b, (int, float)):

@@ -13,8 +13,10 @@ Eq. (17)/(18) never look inside a cell: the objective only needs each
 cell's occurrence frequency and a per-design-point time/feasibility
 function that the sweep engine can evaluate in bulk. That contract is the
 :class:`Cell` protocol below. ``(stencil, size)`` cells
-(:class:`WorkloadCell`, family ``"stencil"``) are the only family this
-package sweeps so far.
+(:class:`WorkloadCell`, family ``"stencil"``) are one instance; LM op-graph
+cells over real model configs (:mod:`repro_torch.core.lmcells`, family
+``"lm"``) are another, and ``codesign()`` dispatches on
+:attr:`Workload.family`.
 
 numpy only: the same definitions as the JAX package's ``core/workload.py``,
 kept as this package's own copy.
@@ -100,7 +102,8 @@ class Workload:
 
     @property
     def family(self) -> str:
-        """Cell family ("stencil" for the paper's suite)."""
+        """Cell family ("stencil" for the paper's suite, "lm" for op-graph
+        cells); drives the ``codesign()`` dispatch and artifact routing."""
         if not self.cells:
             return "stencil"
         return getattr(self.cells[0], "family", "stencil")

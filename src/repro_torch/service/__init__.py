@@ -34,7 +34,6 @@ on-disk format and the same wire bytes:
 * :mod:`repro_torch.service.cli`     -- ``python -m repro_torch.service.cli
   query|build|portfolio|route|ls|upgrade|gc|serve``.
 
-LM-family serving (:class:`LMServer`) is not ported yet and raises.
 """
 
 from . import faults  # noqa: F401

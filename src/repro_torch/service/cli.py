@@ -10,11 +10,20 @@ call -- any frequency mix, budget, what-if -- is a warm re-reduction):
     python -m repro_torch.service.cli build --gpu titanx       # second GPU target
     python -m repro_torch.service.cli ls
 
+LM workloads (op-graph cells over mesh plans; see docs/lm_codesign.md --
+area IS the chip count, so --max-area is a chip budget):
+
+    python -m repro_torch.service.cli build --workload lm --chips 256
+    python -m repro_torch.service.cli query --workload lm \\
+        --freq llama3-8b:decode=1 --max-area 64 --top-k 3
+
 Fleet serving (gateway over every stored artifact; see docs/serving.md):
 
     python -m repro_torch.service.cli serve --port 8932
     python -m repro_torch.service.cli query --url http://127.0.0.1:8932 \\
         --gpu titanx --stencil heat2d --max-area 450
+    python -m repro_torch.service.cli query --url http://127.0.0.1:8932 \\
+        --gpu tpu_v5e --workload lm --freq llama3-8b:decode=1
 
 Fleet portfolios (K designs + heterogeneity-aware routing; see
 docs/portfolio.md):
@@ -44,9 +53,9 @@ lines and exit codes otherwise):
   float64 oracle).
 * ``serve`` creates no tensor: it serves stored artifacts on the host,
   and queries reduce on the host, as in the JAX package.
-* ``--workload lm`` in process exits 2 with one line: LM-workload
-  codesign is not ported yet. With ``--url`` the name stays a routing
-  selector.
+* ``--workload lm`` builds and queries LM sweeps in process under the same
+  ``--engine``/``--device`` rule (``auto``: numpy below 64 mesh points,
+  else torch); with ``--url`` the name stays a routing selector.
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ import numpy as np
 
 from .query import QueryRequest
 from .server import CodesignServer
-from .store import _LM_TODO, ArtifactStore
+from .store import ArtifactStore
 from .wire import RemoteError
 
 DEFAULT_STORE = os.environ.get(
@@ -115,13 +124,23 @@ def _add_server_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--store", default=DEFAULT_STORE, help="artifact store directory")
     p.add_argument("--gpu", default=None,
                    help=f"GPU target constants, one of {_gpu_names()} "
-                        "(default gtx980); with --url, the routing selector "
-                        "instead -- any served name, incl. calibrated ones "
-                        "like 'gtx980-cal'")
+                        "(default gtx980); with --workload lm, the accelerator "
+                        "name stamped on the artifact (default tpu_v5e); with "
+                        "--url, the routing selector instead -- any served "
+                        "name, incl. calibrated ones like 'gtx980-cal'")
     p.add_argument("--workload", default=None, metavar="FAMILY",
-                   help="with --url, the workload-name routing selector; in "
-                        "process only the paper's stencil workload is built "
-                        "('lm' is not ported yet)")
+                   help="cell family to build/query: 'lm' sweeps LM op-graph "
+                        "cells over mesh plans (docs/lm_codesign.md); default "
+                        "is the paper's stencil workload. With --url, the "
+                        "workload-name routing selector")
+    p.add_argument("--arch", action="append", metavar="NAME",
+                   help="with --workload lm: model config to include, e.g. "
+                        "llama3-8b (repeatable; default llama3-8b + "
+                        "mixtral-8x22b)")
+    p.add_argument("--chips", type=int, default=512,
+                   help="with --workload lm: chip budget bounding the mesh "
+                        "factorization space (default 512, the smallest "
+                        "budget where every default cell fits)")
     p.add_argument("--max-hw-area", type=float, default=650.0,
                    help="hardware-space enumeration budget (mm^2)")
     p.add_argument("--downsample", type=int, default=1,
@@ -135,15 +154,31 @@ def _add_server_args(p: argparse.ArgumentParser) -> None:
 
 
 def _server(args):
-    """In-process server for the paper's stencil workload (the --url path
+    """In-process server for the requested cell family (the --url path
     never gets here; there the flags become routing selectors)."""
-    if args.workload == "lm":
-        raise _die(_LM_TODO)
-    if args.workload is not None:
+    if args.workload is not None and args.workload != "lm":
         raise _die(
-            f"in-process --workload supports only the stencil workload (got "
-            f"{args.workload!r}); other workload names are routing selectors "
-            "for --url queries"
+            f"in-process --workload supports 'lm' (got {args.workload!r}); "
+            "other workload names are routing selectors for --url queries"
+        )
+    if args.workload != "lm" and (args.arch or args.chips != 512):
+        raise _die("--arch/--chips only apply to --workload lm")
+    if args.workload == "lm":
+        from repro_torch.core.lmcells import LM_GPU_NAME, lm_workload
+
+        from .server import LMServer
+
+        kw = {}
+        if args.arch:
+            kw["workload"] = lm_workload(archs=tuple(args.arch))
+        return LMServer(
+            ArtifactStore(args.store),
+            max_chips=args.chips,
+            downsample=args.downsample,
+            engine=args.engine,
+            gpu_name=args.gpu or LM_GPU_NAME,
+            batch_window=0.0,
+            **kw,
         )
     return CodesignServer(
         ArtifactStore(args.store),
@@ -155,7 +190,7 @@ def _server(args):
     )
 
 
-def _ready(args) -> CodesignServer:
+def _ready(args):
     """:func:`_server`, with ``--device`` resolved only when its miss path
     will sweep on torch: a warm store and the numpy oracle need no device."""
     from repro_torch.core.codesign import _resolve_engine
@@ -257,7 +292,7 @@ def cmd_query_batch(args) -> None:
     superseded = {
         "--stencil": args.stencil, "--freq": args.freq, "--fix": args.fix,
         "--artifact": args.artifact, "--gpu": args.gpu,
-        "--workload": args.workload,
+        "--workload": args.workload, "--arch": args.arch,
         "--pareto": args.pareto or None,
         "--max-area": None if args.max_area == np.inf else args.max_area,
         "--min-area": args.min_area or None,
@@ -384,10 +419,11 @@ def cmd_build(args) -> None:
         # another process holds the build flock past REPRO_LOCK_TIMEOUT_S):
         # one line + exit 2, never a traceback
         raise _die(f"{e.code}: {e}")
+    gpu_name = srv.gpu_name if hasattr(srv, "gpu_name") else srv.gpu.name
     print(f"artifact {srv.key}: "
           f"{'already stored' if srv.stats['artifact_loads'] else 'built'} "
           f"({time.perf_counter()-t0:.1f}s, {len(srv.hw)} hw points, "
-          f"{len(srv.workload.cells)} cells, gpu={srv.gpu.name})")
+          f"{len(srv.workload.cells)} cells, gpu={gpu_name})")
 
 
 def cmd_portfolio(args) -> None:

@@ -21,8 +21,9 @@ through a single long-lived endpoint. The gateway closes that gap:
 * **LRU server pool** -- each routed key gets a lazily-instantiated
   per-artifact server for its cell family
   (:func:`~repro_torch.service.server.server_from_artifact`: a
-  :class:`CodesignServer` for stencil sweeps), kept in an LRU bounded by
-  ``pool_size``: hundreds of stored artifacts never mean
+  :class:`CodesignServer` for stencil sweeps, an
+  :class:`~repro_torch.service.server.LMServer` for LM sweeps), kept in an
+  LRU bounded by ``pool_size``: hundreds of stored artifacts never mean
   hundreds of resident mmaps/LRUs. Evicted servers finish their in-flight
   queries (the query path holds a reference) and are garbage-collected;
 * **HTTP transport** -- :class:`GatewayHTTPServer` (stdlib
@@ -52,14 +53,7 @@ The port, against the JAX package's gateway:
   :class:`~repro_torch.service.query.QueryEngine`, which reduces a
   microbatch row by row -- so an HTTP answer, from ``/v1/query`` under
   concurrency or from ``/v1/query_many``, is byte-identical to the lone
-  in-process answer to the same request;
-* LM sweeps are indexed from their manifests, so LM routing selectors
-  (``{"workload": "lm"}``) still resolve; a query routed to one reaches
-  :func:`~repro_torch.service.server.server_from_artifact`, which raises
-  ``NotImplementedError`` until LM-workload codesign is ported, and the
-  handler answers it as it answers any raw failure: HTTP 500
-  ``internal`` carrying that message. Stencil traffic on the same gateway
-  is unaffected.
+  in-process answer to the same request.
 """
 
 from __future__ import annotations

@@ -14,12 +14,13 @@ queries (consumers):
   (row by row, so each answer is the one the request gets alone; see
   :mod:`repro_torch.service.query`) and distributes the answers.
 
-One server serves one configured sweep. :class:`CodesignServer` serves
-the stencil family on the serving machinery of :class:`_BaseServer`; its
-miss path sweeps on the card unless ``device="cpu"`` is passed.
-:func:`server_from_artifact` wraps a discovered artifact as a warm server
-(the miss path is unreachable); it serves artifacts either package built.
-LM-family serving (:class:`LMServer`) is not ported yet and raises.
+One server serves one configured sweep. There is one server class per cell
+family -- :class:`CodesignServer` (stencils) and :class:`LMServer` (LM
+op-graph cells) -- sharing the serving machinery of :class:`_BaseServer`;
+each one's miss path sweeps on the card unless ``device="cpu"`` is passed.
+:func:`server_from_artifact` dispatches a discovered artifact to the right
+class by its manifest family and wraps it as a warm server (the miss path
+is unreachable); it serves artifacts either package built.
 """
 
 from __future__ import annotations
@@ -37,6 +38,13 @@ from repro_torch.core.codesign import (
     codesign,
     enumerate_hw_space,
 )
+from repro_torch.core.lmcells import (
+    LM_GPU_NAME,
+    LMCodesignResult,
+    LMHardwareSpace,
+    enumerate_lm_hw_space,
+    lm_codesign,
+)
 from repro_torch.core.solver import LATTICE_2D, LATTICE_3D, TileLattice
 from repro_torch.core.timemodel import MAXWELL_GPU, GPUSpec
 from repro_torch.core.workload import Workload, paper_workload
@@ -48,7 +56,7 @@ from repro_torch.obs.trace import span
 from . import faults
 from .query import QueryEngine, QueryRequest, QueryResponse
 from .resilience import check_deadline, remaining_s
-from .store import _LM_TODO, Artifact, ArtifactStore
+from .store import Artifact, ArtifactStore
 
 __all__ = ["CodesignServer", "LMServer", "server_from_artifact"]
 
@@ -399,14 +407,95 @@ class CodesignServer(_BaseServer):
 
 
 class LMServer(_BaseServer):
-    """LM-family serving: not ported yet (it needs LM-workload codesign)."""
+    """Serve codesign queries for one configured LM-family sweep.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_LM_TODO)
+    Same serving machinery and guarantees as :class:`CodesignServer`; the
+    configured sweep is :func:`repro_torch.core.lmcells.lm_codesign` over
+    mesh factorizations of ``max_chips`` (area IS the chip count, so area
+    budgets in requests are chip budgets). The default workload
+    (:func:`repro_torch.core.lmcells.lm_workload`) covers Llama-3-8B and
+    Mixtral-8x22B -- built lazily only when no ``workload`` is given, since
+    it sizes both models on the meta device. ``engine`` and ``device``
+    are the miss path's, as for :class:`CodesignServer`.
+    """
+
+    def __init__(
+        self,
+        store: ArtifactStore,
+        workload: Optional[Workload] = None,
+        hw: Optional[LMHardwareSpace] = None,
+        max_chips: int = 512,
+        downsample: int = 1,
+        engine: str = "auto",
+        gpu_name: str = LM_GPU_NAME,
+        device=None,
+        batch_window: float = 0.002,
+        lru_size: int = 256,
+    ):
+        self._init_serving(store, batch_window, lru_size)
+        if workload is None:
+            from repro_torch.core.lmcells import lm_workload
+
+            workload = lm_workload()
+        if getattr(workload, "family", "stencil") != "lm":
+            raise ValueError(
+                f"LMServer wants an LM workload, got family {workload.family!r}"
+            )
+        self.workload = workload
+        self.gpu_name = gpu_name
+        self.device = device
+        if hw is None:
+            hw = enumerate_lm_hw_space(max_chips=max_chips)
+            if downsample > 1:
+                hw = hw.downsample(downsample)
+        self.hw = hw
+        self.engine = engine
+        self.key = store.key_for_lm(self.workload, self.hw, engine, gpu_name)
+
+    def _solve(self) -> Artifact:
+        result = lm_codesign(
+            self.workload, hw=self.hw, engine=self.engine, gpu_name=self.gpu_name,
+            device=self.device,
+        )
+        return self.store.put(result, engine=self.engine)
 
     @classmethod
-    def from_artifact(cls, *args, **kwargs) -> "LMServer":
-        raise NotImplementedError(_LM_TODO)
+    def from_artifact(
+        cls,
+        store: ArtifactStore,
+        artifact: Artifact,
+        batch_window: float = 0.002,
+        lru_size: int = 256,
+    ) -> "LMServer":
+        """Wrap a stored LM sweep as a warm server (never sweeps); same
+        recomputed-key check as :meth:`CodesignServer.from_artifact`."""
+        m = artifact.manifest
+        workload, gpu_name, _lattices = LMCodesignResult.parse_manifest(m)
+        hw = LMHardwareSpace(
+            pod=np.asarray(artifact.hw_column("pod"), np.float64),
+            data=np.asarray(artifact.hw_column("data"), np.float64),
+            model=np.asarray(artifact.hw_column("model"), np.float64),
+            area=np.asarray(artifact.hw_area, np.float64),
+        )
+        engine = m.get("spec", {}).get("engine") or m.get("engine", "auto")
+        srv = cls(
+            store,
+            workload=workload,
+            hw=hw,
+            engine=engine,
+            gpu_name=gpu_name,
+            batch_window=batch_window,
+            lru_size=lru_size,
+        )
+        if srv.key != artifact.key:
+            raise ValueError(
+                f"artifact {artifact.key} does not reproduce its own content "
+                f"address (got {srv.key}); refusing to serve it"
+            )
+        srv._engine = QueryEngine(artifact, lru_size=lru_size)
+        srv.stats["artifact_loads"] += 1
+        _M_ART_LOADS.inc()
+        return srv
 
 
 def server_from_artifact(
@@ -416,8 +505,7 @@ def server_from_artifact(
     lru_size: int = 256,
 ):
     """Warm server for a discovered sweep artifact, dispatched on its
-    manifest's cell family (LM artifacts raise until that family is
-    ported)."""
+    manifest's cell family -- the gateway's single construction point."""
     if artifact.family == "lm":
         return LMServer.from_artifact(store, artifact, batch_window, lru_size)
     return CodesignServer.from_artifact(store, artifact, batch_window, lru_size)

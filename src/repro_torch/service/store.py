@@ -2,10 +2,12 @@
 
 The JAX package's store, with the same on-disk format (``FORMAT_VERSION``,
 file layout, manifest keys, content keys), so either package can serve
-the other's artifacts. Two differences: the stencil family only (LM
-artifacts' JSON reads, but keying, writing or materializing one raises
-until LM codesign is ported), and the digest engine (:func:`_digest_engine`)
-knows the port's ``"torch"`` engine.
+the other's artifacts, stencil and LM families alike. One difference: the
+digest engine (:func:`_digest_engine`) knows the port's ``"torch"``
+engine, for both families. The JAX package's LM digest accepts only its
+own engine names, so it cannot re-key (and so refuses to serve) a
+port-built ``"torch"`` LM artifact; numpy-built LM artifacts are the same
+bytes in both packages.
 
 The separability decomposition makes the ``(cells x hardware)`` optima
 matrix the unit of reuse: every §V.B analysis (re-weighted mixes, top-k
@@ -111,8 +113,9 @@ KINDS = ("sweep", "measurement", "calibration", "telemetry", "portfolio")
 #: float64 oracle in both packages and keeps the JAX package's key.
 #: "torch" is the port's float32 broadcast engine: its matrix agrees with
 #: "jax" and "numpy" only up to ties at RTOL 1e-5, so it keeps a key of
-#: its own and never shares one with either. "auto" is resolved to the
-#: concrete engine it would pick *before* digesting.
+#: its own and never shares one with either (an LM sweep's torch engine
+#: runs in float64, and keeps its own key all the same). "auto" is
+#: resolved to the concrete engine it would pick *before* digesting.
 _DIGEST_ENGINE = {"sharded": "jax"}
 
 #: engine names a key may digest: the port's own and the JAX package's.
@@ -168,11 +171,6 @@ def _digest_engine(engine: str, n_hw: int) -> str:
     return _DIGEST_ENGINE.get(engine, engine)
 
 
-#: what an LM-family entry point says: the family is not ported yet.
-_LM_TODO = (
-    "LM-workload artifacts are not ported to repro_torch yet "
-    "(ROADMAP Queue 1 item 7, LM-workload codesign)"
-)
 
 
 def _canonical_json(obj) -> str:
@@ -219,8 +217,38 @@ def artifact_spec(
 
 
 def lm_artifact_spec(workload: Workload, hw, engine: str, gpu_name: str) -> dict:
-    """Content-address identity of an LM-family sweep: not ported yet."""
-    raise NotImplementedError(_LM_TODO)
+    """Content-address identity of an LM-family sweep (family ``"lm"``).
+
+    Same contract as :func:`artifact_spec`: computable without running the
+    sweep, frequencies excluded (the matrix serves every mix), engine
+    resolved to its matrix family by :func:`_digest_engine` (the stencil
+    rule: numpy and the port's float64 torch engine keep keys of their
+    own). Cells are keyed by their full numeric identity -- model/op/shape
+    plus the precomputed constants that enter the time model -- so any
+    change that could move the matrix moves the key."""
+    from repro_torch.core.lmcells import lm_sw_lattice
+
+    return {
+        "format_version": FORMAT_VERSION,
+        "family": "lm",
+        "cells": [
+            [
+                c.model, c.op, c.shape.name, int(c.shape.seq_len),
+                int(c.shape.global_batch), c.shape.kind, c.consts(),
+            ]
+            for c in workload.cells
+        ],
+        "gpu": gpu_name,
+        "hw_digest": _array_digest(hw.pod, hw.data, hw.model, hw.area),
+        "n_hw": len(hw),
+        "sw_lattices": sorted(
+            {
+                _canonical_json(lm_sw_lattice(c.op).as_dict())
+                for c in workload.cells
+            }
+        ),
+        "engine": _digest_engine(engine, len(hw)),
+    }
 
 
 def spec_key(spec: dict) -> str:
@@ -418,9 +446,19 @@ class Artifact:
 
     def to_result(self):
         """Materialize the full in-process result object (round-trip
-        inverse of :meth:`ArtifactStore.put`); stencil family only."""
+        inverse of :meth:`ArtifactStore.put`), dispatching on family."""
         if self.family == "lm":
-            raise NotImplementedError(_LM_TODO)
+            from repro_torch.core.lmcells import LMCodesignResult
+
+            arrays = {
+                "cell_time": self.cell_time,
+                "cell_plan_idx": self._arr("cell_plan_idx"),
+                "hw_pod": self._arr("hw_pod"),
+                "hw_data": self._arr("hw_data"),
+                "hw_model": self._arr("hw_model"),
+                "hw_area": self.hw_area,
+            }
+            return LMCodesignResult.from_artifact_payload(self.manifest, arrays)
         arrays = {
             "cell_time": self.cell_time,
             "cell_tile_idx": self.cell_tile_idx,
@@ -472,8 +510,8 @@ class ArtifactStore:
     def key_for_lm(
         self, workload: Workload, hw, engine: str = "auto", gpu_name: str = "tpu_v5e"
     ) -> str:
-        """Content key of an LM-family sweep: not ported yet."""
-        raise NotImplementedError(_LM_TODO)
+        """Content key of an LM-family sweep, computable before running it."""
+        return spec_key(lm_artifact_spec(workload, hw, engine, gpu_name))
 
     def _path(self, key: str) -> str:
         return os.path.join(self.root, key)
@@ -634,18 +672,23 @@ class ArtifactStore:
         attributes into the manifest's routing block (e.g. the
         ``calibration`` key of the fit a calibrated sweep derives from) --
         routing is not part of the content address, so this never moves
-        the key. LM results are not ported yet and raise."""
+        the key. Dispatches on the result's cell family: LM results
+        (:class:`repro_torch.core.lmcells.LMCodesignResult`) key via
+        :func:`lm_artifact_spec` (the tile-lattice pins do not apply)."""
         if getattr(result, "family", "stencil") == "lm":
-            raise NotImplementedError(_LM_TODO)
-        lat2 = lattice_2d or next(
-            (lat for lat in result.lattices if len(lat.t_s3) == 1), LATTICE_2D
-        )
-        lat3 = lattice_3d or next(
-            (lat for lat in result.lattices if len(lat.t_s3) > 1), LATTICE_3D
-        )
-        spec = artifact_spec(
-            result.workload, result.gpu, result.hw, engine, lat2, lat3
-        )
+            spec = lm_artifact_spec(
+                result.workload, result.hw, engine, result.gpu_name
+            )
+        else:
+            lat2 = lattice_2d or next(
+                (lat for lat in result.lattices if len(lat.t_s3) == 1), LATTICE_2D
+            )
+            lat3 = lattice_3d or next(
+                (lat for lat in result.lattices if len(lat.t_s3) > 1), LATTICE_3D
+            )
+            spec = artifact_spec(
+                result.workload, result.gpu, result.hw, engine, lat2, lat3
+            )
         key = spec_key(spec)
         manifest, arrays = result.artifact_payload()
         manifest.update(

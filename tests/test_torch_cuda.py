@@ -232,3 +232,50 @@ def test_portfolio_torch_engine_on_the_card(card, k):
             else:
                 attr = "fleet_density" if objective == "density" else "fleet_gflops"
                 assert getattr(got, attr) == pytest.approx(getattr(want, attr), rel=1e-12)
+
+
+@pytest.mark.parametrize("chips", [64, 512])
+def test_lm_codesign_torch_engine_on_the_card(card, chips):
+    """The LM sweep's torch engine in float64 on the card against the numpy
+    oracle (the default workload): times within 1e-12 relative, plan
+    indices equal but where the oracle's row ties them."""
+    import numpy as np
+
+    from repro_torch.core.lmcells import (
+        enumerate_lm_hw_space,
+        lm_cell_roofline,
+        lm_codesign,
+        lm_sw_lattice,
+        lm_workload,
+    )
+
+    wl, hw = lm_workload(), enumerate_lm_hw_space(chips)
+    want = lm_codesign(wl, hw=hw, engine="numpy")
+    got = lm_codesign(wl, hw=hw, engine="torch")
+    feas = np.isfinite(want.cell_time)
+    np.testing.assert_array_equal(np.isfinite(got.cell_time), feas)
+    np.testing.assert_allclose(got.cell_time[feas], want.cell_time[feas], rtol=1e-12, atol=0)
+    for ci, hi in zip(*np.nonzero(got.cell_plan_idx != want.cell_plan_idx)):
+        cell, p = wl.cells[ci], hw.point(int(hi))
+        plan = lm_sw_lattice(cell.op).plan(p["pod"], p["data"], p["model"], int(got.cell_plan_idx[ci, hi]))
+        assert lm_cell_roofline(cell, plan)["bound_s"] == pytest.approx(want.cell_time[ci, hi], rel=1e-12)
+
+
+def test_lm_model_materialises_on_the_card(card):
+    """A reduced model's parameter tree on the card, drawn from a seeded
+    CUDA generator: every parameter finite and on the card, the same
+    values from the same seed, and the bytes its count predicts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, count_params
+
+    for name in ("llama3-8b", "deepseek-v3-671b", "jamba-v0.1-52b", "whisper-medium"):
+        cfg = get_arch(name).reduced()
+        a = Model(cfg, generator=torch.Generator(device=card).manual_seed(3))
+        b = Model(cfg, generator=torch.Generator(device=card).manual_seed(3))
+        pb = dict(b.named_parameters())
+        n = 0
+        for key, p in a.named_parameters():
+            assert p.is_cuda and bool(torch.isfinite(p).all()), (name, key)
+            assert torch.equal(p, pb[key]), (name, key)
+            n += p.numel()
+        assert n == count_params(cfg)

@@ -9,9 +9,10 @@
   ``GatewayClient`` against the port's gateway and the port's client
   against the reference's gateway give byte-identical ``/v1/query``,
   ``/v1/query_many`` and ``/v1/route`` bodies.
-* An LM sweep (built by the reference) shares the port gateway's store:
-  LM selectors resolve, a query routed to it answers 500 ``internal``
-  with the port's not-ported message, and stencil traffic is unaffected.
+* An LM sweep (built by the reference) shares a store with a stencil
+  sweep: LM selectors resolve, and each package's client against each
+  package's gateway gets the reference's in-process LM answer byte for
+  byte on ``/v1/query``, while stencil traffic is unaffected.
 """
 
 import dataclasses
@@ -611,12 +612,12 @@ def test_cross_package_http_route_bytes(two_gateways):
 
 
 # ---------------------------------------------------------------------------
-# an LM sweep on the port's gateway: 500 internal, stencils unaffected
+# an LM sweep beside the stencil sweeps: both gateways, both clients
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def lm_fleet():
     """A stencil sweep (port) and an LM sweep (reference) for the same GPU
-    name in one store, behind the port's gateway."""
+    name in one store, behind the port's gateway and the reference's."""
     import repro.service as RS
     from repro.configs import get_arch
     from repro.core.lmcells import enumerate_lm_hw_space, lm_workload
@@ -635,15 +636,17 @@ def lm_fleet():
     lsrv.ensure_artifact()
     gw = Gateway(root, batch_window=0.0)
     httpd, url = _serve(gw, serve_http)
-    yield ssrv, lsrv.key, gw, url
-    httpd.shutdown()
-    httpd.server_close()
+    ref_httpd, ref_url = _serve(RS.Gateway(root, batch_window=0.0), RS.serve_http)
+    yield ssrv, lsrv.key, gw, url, ref_url
+    for h in (httpd, ref_httpd):
+        h.shutdown()
+        h.server_close()
 
 
 def test_lm_selectors_resolve_and_cross_family_is_structured(lm_fleet):
     from repro_torch.service import AmbiguousWorkloadError
 
-    ssrv, lm_key, gw, _ = lm_fleet
+    ssrv, lm_key, gw, _, _ = lm_fleet
     assert gw.resolve(route={"workload": "lm"}) == lm_key
     assert gw.resolve(route={"family": "lm"}) == lm_key
     assert gw.resolve(route={"family": "stencil"}) == ssrv.key
@@ -651,21 +654,45 @@ def test_lm_selectors_resolve_and_cross_family_is_structured(lm_fleet):
         gw.resolve(route={"gpu": MAXWELL_GPU.name})
 
 
-def test_lm_query_answers_500_internal_and_stencils_unaffected(lm_fleet):
-    from repro_torch.service.store import _LM_TODO
+def _lm_cross_requests(seed=13):
+    """LM queries (port and reference twins): decode under a chip budget,
+    model and op groups, a what-if, Pareto, seeded mixes."""
+    import repro.service as RS
 
-    ssrv, lm_key, gw, url = lm_fleet
-    client = GatewayClient(url)
+    model = "llama3-8b-reduced"
+    rng = np.random.default_rng(seed)
+    reqs = [_req(freqs={f"{model}:decode": 1.0}, max_area=16.0, top_k=3, pareto=True),
+            _req(freqs={model: 1.0}, top_k=5),
+            _req(freqs={"train": 1.0}, fix={"model": 2.0}),
+            _req(freqs={f"{model}:decode": 1.0}, max_area=0.5)]
+    labels = [f"{model}:{op}" for op in ("prefill", "decode", "train")]
+    for i in range(3):
+        reqs.append(_req(freqs=dict(zip(labels, rng.uniform(0.1, 1.0, 3).tolist())),
+                         max_area=float(rng.choice([8, 16, 32])), top_k=1 + i))
+    return [(q, RS.QueryRequest(**dataclasses.asdict(q))) for q in reqs]
+
+
+def test_cross_package_http_lm_query_bytes_and_stencils_unaffected(lm_fleet):
+    """Each package's client against each gateway: an LM ``/v1/query``
+    body is the bytes of the reference's in-process LM server, and a
+    stencil query on the same gateways is unaffected."""
+    import repro.service as RS
+
+    ssrv, lm_key, _, url, ref_url = lm_fleet
+    rstore = RS.ArtifactStore(ssrv.store.root)
+    oracle = RS.server_from_artifact(rstore, rstore.get(lm_key), batch_window=0.0)
     stencil = _req(top_k=2, pareto=True)
-    want = wire.encode_response(ssrv.query(stencil))
-    assert client.query_bytes(stencil, route={"family": "stencil"}) == want
-    for route, artifact in (({"workload": "lm"}, None), (None, lm_key)):
-        with pytest.raises(RemoteError) as exc:
-            client.query(QueryRequest(use_cache=False), artifact=artifact, route=route)
-        assert exc.value.code == "internal" and exc.value.http_status == 500
-        assert "NotImplementedError" in exc.value.message and _LM_TODO in exc.value.message
-        assert client.query_bytes(stencil, artifact=ssrv.key) == want
-    assert client.health()["ok"]
-    results = client.query_many([(stencil, ssrv.key, None), (stencil, lm_key, None)])
-    assert wire.encode_response(results[0]) == want
-    assert isinstance(results[1], RemoteError) and results[1].code == "internal"
+    want_stencil = wire.encode_response(ssrv.query(stencil))
+    for name, mine, theirs in _clients((("port", url), ("ref", ref_url))):
+        for req, rreq in _lm_cross_requests():
+            want = RS.wire.encode_response(oracle.query(rreq))
+            assert mine.query_bytes(req, route={"workload": "lm"}) == want, name
+            assert mine.query_bytes(req, artifact=lm_key) == want, name
+            assert theirs.query_bytes(rreq, route={"workload": "lm"}) == want, name
+        assert mine.query_bytes(stencil, route={"family": "stencil"}) == want_stencil, name
+        assert mine.query_bytes(stencil, artifact=ssrv.key) == want_stencil, name
+        assert mine.health()["ok"]
+    many = GatewayClient(url).query_many(
+        [(stencil, ssrv.key, None), (_lm_cross_requests()[0][0], lm_key, None)])
+    assert wire.encode_response(many[0]) == want_stencil
+    assert many[1].best_index >= 0 and many[1].artifact_key == lm_key

@@ -3,7 +3,8 @@
 * The port's numpy oracle equals the reference's exactly (members,
   assignment, preference, payload bytes) for K in {1, 2, 3}, both
   objectives and several budgets, on sweeps both packages compute from the
-  same inputs (``STRIDE = 32``: 161 hardware points, both paper GPUs).
+  same inputs (``STRIDE = 32``: 161 hardware points, both paper GPUs; and
+  an LM sweep, Llama-3-8B over 64 chips, whose budgets are chip counts).
 * K=1 under the throughput objective is ``best(max_area=budget)`` bit for
   bit.
 * The ``"torch"`` engine (float64 scoring, here on the CPU) is
@@ -61,13 +62,24 @@ STRIDE = 32
 #: numpy: a tie to the last bits may name another subset
 RTOL = 1e-12
 
-FAMILIES = ("gtx980", "titanx")
+#: both paper GPUs' stencil sweeps, and an LM sweep (Llama-3-8B, 64 chips)
+#: as in the reference's ``tests/test_portfolio.py``
+FAMILIES = ("gtx980", "titanx", "lm")
 
 _RESULTS = {}
 
 
 def sweep_result(name):
     """Module-cached numpy-engine sweeps: (port result, reference result)."""
+    if name == "lm" and name not in _RESULTS:
+        from repro.core.lmcells import lm_codesign as r_lm_codesign
+        from repro.core.lmcells import lm_workload as r_lm_workload
+        from repro_torch.core.lmcells import lm_codesign, lm_workload
+
+        _RESULTS[name] = (
+            lm_codesign(lm_workload(archs=("llama3-8b",)), max_chips=64, engine="numpy"),
+            r_lm_codesign(r_lm_workload(archs=("llama3-8b",)), max_chips=64, engine="numpy"),
+        )
     if name not in _RESULTS:
         _RESULTS[name] = (
             codesign(paper_workload(), gpu=GPUS_BY_NAME[name],
@@ -421,3 +433,37 @@ def test_route_wire_codec_round_trip():
         wire.decode_route_request_full(
             json.dumps({"v": 1, "request": {"cell": ""}}).encode()
         )
+
+
+def test_lm_portfolio_key_bytes_and_routes_match_the_reference(tmp_path):
+    """A K=2 fleet over the LM sweep (Llama-3-8B, 64 chips; budgets are
+    chip counts): a numpy portfolio built by either package has the same
+    key and manifest bytes, routes every model:op group with the same
+    bytes, and the default torch engine (here on the CPU) agrees with it."""
+    from repro.core.lmcells import lm_workload as r_lm_workload
+    from repro_torch.core.lmcells import lm_workload
+    from repro_torch.service.server import LMServer
+
+    store = ArtifactStore(str(tmp_path / "port"))
+    srv = LMServer(store, workload=lm_workload(archs=("llama3-8b",)), max_chips=64,
+                   engine="numpy", batch_window=0.0)
+    srv.ensure_artifact()
+    rstore = RS.ArtifactStore(str(tmp_path / "ref"))
+    rsrv = RS.LMServer(rstore, workload=r_lm_workload(archs=("llama3-8b",)), max_chips=64,
+                       engine="numpy", batch_window=0.0)
+    rsrv.ensure_artifact()
+    assert srv.key == rsrv.key
+    for k, budget, objective in ((2, 64.0, "throughput"), (2, 128.0, "density")):
+        art, res = build_portfolio(store, srv.key, k, budget, objective=objective, engine="numpy")
+        rart, _ = r_build_portfolio(rstore, rsrv.key, k, budget, objective=objective)
+        assert art.key == rart.key
+        with open(f"{art.path}/manifest.json", "rb") as f, open(f"{rart.path}/manifest.json", "rb") as g:
+            assert f.read() == g.read()
+        router = PortfolioServer(store.get(art.key), store.get(srv.key))
+        rrouter = RS.PortfolioServer(rstore.get(rart.key), rstore.get(rsrv.key))
+        assert sorted(router.cell_labels()) == ["llama3-8b:decode", "llama3-8b:prefill", "llama3-8b:train"]
+        for cell in router.cell_labels():
+            assert wire.encode_route_response(router.route(RouteRequest(cell=cell))) == \
+                RS.wire.encode_route_response(rrouter.route(RS.RouteRequest(cell=cell)))
+        _, got = build_portfolio(store, srv.key, k, budget, objective=objective, device="cpu")
+        assert_tie_aware_equal(got, res, objective, f"lm k={k} {objective}")

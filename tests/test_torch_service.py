@@ -7,6 +7,11 @@ JAX package's.
 * Bytes: a numpy build writes the reference's ``manifest.json`` and
   ``cell_time.npy`` byte for byte, and the same ``arrays.npz`` members.
 * Each package serves the other's artifact with exactly equal answers.
+* The LM family, on the default question (Llama-3-8B + Mixtral-8x22B, 512
+  chips): numpy, jax and sharded keys are the reference's, torch keys
+  apart; a numpy build writes the reference's bytes; each package serves
+  the other's numpy LM artifact with the same wire bytes; a port-built
+  torch LM artifact serves from the port and the reference refuses it.
 * The reference's own service tests (``tests/test_service.py``), run on the
   port: round trip, stale format, reuse without restaging, the build lock
   across processes, an engine-free warm path, top-k, what-if, infeasible
@@ -151,12 +156,132 @@ def test_torch_never_shares_a_key_with_jax_or_numpy():
         artifact_spec(wl, MAXWELL_GPU, hw, "cuda")
 
 
-def test_lm_family_raises_and_its_manifest_json_reads(built, tmp_path):
-    store, _, _ = built
-    with pytest.raises(NotImplementedError, match="item 7"):
-        store.key_for_lm(paper_workload(), small_hw())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        LMServer(store)
+# ---------------------------------------------------------------------------
+# the LM family: keys, bytes, each package serving the other's
+# ---------------------------------------------------------------------------
+LM_ARCHS = ("llama3-8b", "mixtral-8x22b")
+
+
+def _lm_requests(seed=7):
+    """LM queries: the docs' decode mix under 64 chips, model and op
+    groups, what-ifs, Pareto, an infeasible budget, seeded mixes."""
+    rng = np.random.default_rng(seed)
+    reqs = [
+        QueryRequest(freqs={"llama3-8b:decode": 1.0}, max_area=64.0, top_k=3),
+        QueryRequest(freqs={"mixtral-8x22b": 1.0}, top_k=5, pareto=True),
+        QueryRequest(freqs={"train": 1.0}, fix={"model": 8.0}),
+        QueryRequest(max_area=0.5),
+        QueryRequest(),
+    ]
+    labels = [f"{a}:{op}" for a in LM_ARCHS for op in ("prefill", "decode", "train")]
+    for i in range(4):
+        reqs.append(QueryRequest(freqs=dict(zip(labels, rng.uniform(0.1, 1.0, len(labels)).tolist())),
+                                 max_area=float(rng.choice([128, 256, 512])), top_k=1 + i,
+                                 pareto=i % 2 == 0))
+    return reqs
+
+
+@pytest.fixture(scope="module")
+def lm_pair(tmp_path_factory):
+    """The default LM question (Llama-3-8B + Mixtral-8x22B, 512 chips),
+    numpy-built by each package into its own store."""
+    from repro.core.lmcells import lm_codesign as r_lm_codesign
+    from repro.core.lmcells import lm_workload as r_lm_workload
+    from repro_torch.core.lmcells import lm_codesign, lm_workload
+
+    port = ArtifactStore(str(tmp_path_factory.mktemp("port-lm")))
+    ref = RS.ArtifactStore(str(tmp_path_factory.mktemp("ref-lm")))
+    p_art = port.put(lm_codesign(lm_workload(LM_ARCHS), engine="numpy"), engine="numpy")
+    r_art = ref.put(r_lm_codesign(r_lm_workload(LM_ARCHS), engine="numpy"), engine="numpy")
+    return port, p_art, ref, r_art
+
+
+def test_lm_keys_are_the_references():
+    from repro.core.lmcells import enumerate_lm_hw_space as r_hw_space
+    from repro.core.lmcells import lm_workload as r_lm_workload
+    from repro.service.store import lm_artifact_spec as r_lm_artifact_spec
+    from repro_torch.core.lmcells import enumerate_lm_hw_space, lm_workload
+    from repro_torch.service.store import lm_artifact_spec
+
+    wl, rwl = lm_workload(LM_ARCHS), r_lm_workload(LM_ARCHS)
+    for chips in (512, 64, 32):
+        hw, rhw = enumerate_lm_hw_space(chips), r_hw_space(chips)
+        for engine in ("numpy", "jax", "sharded"):
+            spec = lm_artifact_spec(wl, hw, engine, "tpu_v5e")
+            assert spec == r_lm_artifact_spec(rwl, rhw, engine, "tpu_v5e")
+            assert spec_key(spec) == RS.spec_key(spec)
+        store = ArtifactStore.__new__(ArtifactStore)  # key_for_lm reads no store state
+        keys = {e: store.key_for_lm(wl, hw, e) for e in ("numpy", "torch", "jax", "auto")}
+        assert len({keys["numpy"], keys["torch"], keys["jax"]}) == 3
+        # auto: numpy below 64 mesh points, else the port's torch matrix
+        assert keys["auto"] == (keys["numpy"] if len(hw) < 64 else keys["torch"])
+    with pytest.raises(ValueError, match="unknown engine"):
+        lm_artifact_spec(wl, enumerate_lm_hw_space(64), "cuda", "tpu_v5e")
+
+
+def test_lm_numpy_build_writes_the_reference_bytes(lm_pair):
+    _, p_art, _, r_art = lm_pair
+    assert p_art.key == r_art.key and p_art.family == "lm"
+    for name in ("manifest.json", "cell_time.npy"):
+        with open(os.path.join(p_art.path, name), "rb") as a, open(os.path.join(r_art.path, name), "rb") as b:
+            assert a.read() == b.read(), name
+    with np.load(os.path.join(p_art.path, "arrays.npz")) as a, \
+            np.load(os.path.join(r_art.path, "arrays.npz")) as b:
+        assert sorted(a.files) == sorted(b.files) and "cell_plan_idx" in a.files
+        for name in b.files:
+            assert a[name].dtype == b[name].dtype, name
+            np.testing.assert_array_equal(a[name], b[name])
+
+
+@pytest.mark.parametrize("direction", ["reference_artifact_in_port", "port_artifact_in_reference"])
+def test_each_package_serves_the_others_lm_artifact(lm_pair, direction):
+    """Each package opens the other's numpy LM artifact (re-deriving its
+    key) and answers with the bytes the builder's own server gives."""
+    from repro_torch.service import wire
+
+    port, p_art, ref, r_art = lm_pair
+    port_srv = server_from_artifact(port, p_art, batch_window=0.0)
+    ref_srv = RS.server_from_artifact(ref, r_art, batch_window=0.0)
+    if direction == "reference_artifact_in_port":
+        other = ArtifactStore(ref.root)
+        port_srv = server_from_artifact(other, other.get(r_art.key), batch_window=0.0)
+    else:
+        other = RS.ArtifactStore(port.root)
+        ref_srv = RS.server_from_artifact(other, other.get(p_art.key), batch_window=0.0)
+    assert isinstance(port_srv, LMServer) and type(ref_srv).__name__ == "LMServer"
+    assert port_srv.key == ref_srv.key == p_art.key
+    for req in _lm_requests():
+        got = wire.encode_response(port_srv.query(req))
+        assert got == RS.wire.encode_response(ref_srv.query(_as_ref(req))), req
+
+
+def test_port_torch_lm_artifact_and_the_reference(tmp_path):
+    """A port-built ``"torch"`` LM artifact serves from the port, with the
+    numpy artifact's answers (the CPU torch engine is bit-identical); the
+    reference's LM digest rejects the engine name, so it refuses to open
+    it (ROADMAP Queue 3), where it serves the port's stencil ``"torch"``
+    artifacts (``test_port_torch_artifact_served_by_the_reference``)."""
+    from repro_torch.core.lmcells import enumerate_lm_hw_space, lm_codesign, lm_workload
+    from repro_torch.service import wire
+
+    store = ArtifactStore(str(tmp_path))
+    wl = lm_workload(LM_ARCHS)
+    art = store.put(lm_codesign(wl, engine="torch", device="cpu"), engine="torch")
+    assert art.manifest["spec"]["engine"] == "torch"
+    assert art.key == store.key_for_lm(wl, enumerate_lm_hw_space(512), "torch")
+    np_art = store.put(lm_codesign(wl, engine="numpy"), engine="numpy")
+    assert np_art.key != art.key
+    srv = server_from_artifact(store, art, batch_window=0.0)
+    oracle = server_from_artifact(store, np_art, batch_window=0.0)
+    for req in _lm_requests():
+        want = dataclasses.replace(oracle.query(req), artifact_key=art.key)
+        assert wire.encode_response(srv.query(req)) == wire.encode_response(want)
+    rstore = RS.ArtifactStore(str(tmp_path))
+    with pytest.raises(ValueError, match="unknown engine 'torch'"):
+        RS.server_from_artifact(rstore, rstore.get(art.key))
+
+
+def test_lm_manifest_json_reads(tmp_path):
     lm = ArtifactStore(str(tmp_path))
     d = tmp_path / "lmkey"
     d.mkdir()
@@ -171,10 +296,6 @@ def test_lm_family_raises_and_its_manifest_json_reads(built, tmp_path):
     assert art.family == "lm" and art.cell_labels == ["llama3-8b:decode", "llama3-8b:train"]
     np.testing.assert_array_equal(art.cell_flops(), [2.0, 4.0])
     assert art.routing()["models"] == ["llama3-8b"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        art.to_result()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        server_from_artifact(lm, art)
 
 
 # ---------------------------------------------------------------------------
@@ -517,3 +638,26 @@ def test_miss_path_without_a_card_raises(tmp_path):
     jax_srv = CodesignServer(store, hw=small_hw(), engine="jax", device="cpu", batch_window=0.0)
     with pytest.raises(ValueError, match="unknown engine 'jax'"):
         jax_srv.query(QueryRequest())
+
+
+def test_lm_miss_path_without_a_card_raises(tmp_path, monkeypatch):
+    """An ``LMServer``'s miss path sweeps on the card unless device="cpu"
+    was asked for (auto at 100 mesh points is torch); it never sweeps with
+    the JAX package's engines."""
+    import torch
+
+    from repro_torch.core.lmcells import lm_workload
+
+    store = ArtifactStore(str(tmp_path))
+    wl = lm_workload(LM_ARCHS)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for engine in ("torch", "auto"):
+        srv = LMServer(store, workload=wl, engine=engine, batch_window=0.0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            srv.query(QueryRequest())
+    assert not store.keys()
+    jax_srv = LMServer(store, workload=wl, engine="jax", device="cpu", batch_window=0.0)
+    with pytest.raises(ValueError, match="unknown engine 'jax'"):
+        jax_srv.query(QueryRequest())
+    cpu = LMServer(store, workload=wl, engine="torch", device="cpu", batch_window=0.0)
+    assert cpu.query(QueryRequest()).best_index >= 0 and cpu.stats["artifact_builds"] == 1

@@ -11,8 +11,8 @@
   ``portfolio`` (whose default engine is torch) without ``--device`` and
   without a card exit 2 with one line; ``--device cpu`` runs them on the
   CPU, and ``--portfolio-engine numpy`` (the oracle) needs no device;
-  ``--workload lm`` exits 2 with one line. ``serve`` needs no card: its
-  child runs with the card hidden.
+  ``build --workload lm`` follows the same rule. ``serve`` needs no card:
+  its child runs with the card hidden.
 """
 
 import json
@@ -306,9 +306,31 @@ def test_no_card_without_device_exits_2(cli_store, tmp_path, capsys, monkeypatch
     assert json.loads(capsys.readouterr().out)["origin"] == "warm"
 
 
-def test_workload_lm_exits_2_in_process(tmp_path, capsys):
-    _exit_2_one_line(["build", "--store", str(tmp_path), "--workload", "lm"], capsys,
-                     "item 7")
+def test_workload_lm_builds_on_cpu_and_exits_2_without_a_card(tmp_path, capsys, monkeypatch):
+    """``build --workload lm`` (512 chips, 100 mesh points: auto resolves
+    to torch) builds with ``--device cpu``; without ``--device`` and
+    without a card it exits 2 with one line and writes nothing."""
+    import torch
+
+    from repro_torch.core.lmcells import lm_codesign, lm_workload
+
+    store = str(tmp_path / "lm")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _exit_2_one_line(["build", "--store", store, "--workload", "lm"], capsys, "no CUDA device")
+    assert not os.path.exists(store) or not os.listdir(store)
+    cli.main(["build", "--store", store, "--workload", "lm", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert re.search(r"^artifact [0-9a-f]{20}: built .*100 hw points, 7 cells, gpu=tpu_v5e\)$",
+                     out, re.M), out
+    st = ArtifactStore(store)
+    (row,) = st.entries()
+    assert row["family"] == "lm" and row["engine"] == "torch"
+    art = st.get(row["key"])
+    want = lm_codesign(lm_workload(), engine="numpy")
+    np.testing.assert_array_equal(art.cell_time, want.cell_time)
+    # warm now: the same build needs no device
+    cli.main(["build", "--store", store, "--workload", "lm"])
+    assert "already stored" in capsys.readouterr().out
 
 
 def test_device_cpu_builds_and_scores_with_torch(cli_store, tmp_path, capsys):
