@@ -60,12 +60,29 @@ the sweep again on the calibrated machine. Phases:
    beside them, byte-identically to the in-process servers; Llama-3-8B's
    whole parameter tree drawn on the card in bf16 from a seeded
    ``torch.Generator`` (its bytes = 2 x ``count_params``). No kernel lies
-   on this path; the counters are read around it all the same.
+   on this path; the counters are read around it all the same;
+10. the LM forward passes and serve steps (``repro_torch.serve``
+   ``make_prefill``/``make_decode_step``/``greedy`` through
+   ``generate_timed``, the loop that ``generate`` returns the tokens of):
+   reduced llama3-8b, mixtral-8x22b (capacity factor 64), mamba2-780m,
+   deepseek-v3-671b (MLA), whisper-medium and qwen2-vl-2b, each from one
+   seeded tree on the card and on the CPU in f32 (no TF32), with identical
+   tokens and the prefill logits and final caches within 1e-4; ``forward``
+   with ``impl="chunked"`` against ``"plain"`` at S = 2100; then
+   Llama-3-8B at full width on phase 9's bf16 tree (the same seed): (a) 4
+   x 512-token prompts + 32 greedy decode steps, (b) 1 x 8192 tokens (the
+   chunked attention path) + 4 steps, each run twice (cold, warm), the
+   prefill logits and decode steps 1 and last held against a cacheless
+   ``forward`` within ``LOGIT_RTOL`` of the logits' scale, the greedy-token
+   agreement reported; prefill ms, decode ms per step, tokens/s and
+   ``max_memory_allocated`` beside their bounds (``_serve_bounds``); and
+   ``python -m repro_torch.launch.serve --arch llama3-8b`` as a child at
+   case (a)'s shape. No kernel lies on this path either.
 
 The launch counters are set to 0 just before phase 3 and read just after
 phase 5, and again just before and after phase 7: every kernel must have
 been launched on the main path, and K1/K2 on the served path; they are
-set to 0 before phase 9 and printed after it. A failed
+set to 0 before phase 9 and must read 0 after it, and again around phase 10. A failed
 check raises; nothing is caught. The last three lines are a JSON object of
 per-kernel numbers (launches: main path plus served path), the card's name
 and power limit as ``nvidia-smi`` gives them, and the device record.
@@ -83,9 +100,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside the
-#: tensor cores
+#: tensor cores, dense bf16 FLOP/s on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+
+#: phase 10's card-against-CPU parity archs (reduced, f32)
+PARITY_ARCHS = ("llama3-8b", "mixtral-8x22b", "mamba2-780m", "deepseek-v3-671b",
+                "whisper-medium", "qwen2-vl-2b")
+#: full-width Llama-3-8B cases of phase 10: (label, batch, prompt, generated
+#: tokens = 1 from the prefill + the decode steps)
+SERVE_CASES = (("a", 4, 512, 33), ("b", 1, 8192, 5))
+#: bf16 logits of the serve steps against a cacheless forward: max |diff|
+#: within this fraction of the largest |logit|. bf16 keeps 8 significant
+#: bits (a step of 2^-8 = 0.4% of a value); the two paths differ only in
+#: the shapes of their products, whose rounding differs per layer over 32
+#: layers, so differences of a few steps are expected, and a fault (a wrong
+#: slot, position or mask) moves logits by their whole scale
+LOGIT_RTOL = 0.05
 
 NAMES_2D = ("jacobi2d", "heat2d", "laplacian2d", "gradient2d")
 NAMES_3D = ("heat3d", "laplacian3d")
@@ -1242,6 +1274,213 @@ def phase9_lm(smi):
 
 
 
+def _moe_ample(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=64.0)) \
+        if cfg.moe else cfg
+
+
+def _serve_bounds(model, cfg, batch, prompt, steps):
+    """Least times for the serve steps of a dense GQA model on this card:
+    (prefill s, [decode s per step], resident bytes). Operations: 2 per
+    multiply-add of every matrix the step applies (the head on the last
+    position only at prefill), plus QK^T and PV over the causal pairs this
+    run's data has in every layer, at the bf16 tensor-core peak. Bytes: every parameter
+    read once, the embedding rows gathered, the K/V written (prefill) or
+    the valid K/V read and one row written (decode), logits written, at
+    the HBM peak. Each bound is the larger of the two."""
+    layers = [p for p in model.stack.parameters() if p.dim() >= 2]
+    n_mat = sum(p.numel() for p in layers)
+    head = cfg.d_model * cfg.vocab
+    isz = model.embed.element_size()
+    h, kh, dh, nl = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.n_layers
+    w_bytes = sum(p.numel() for p in model.parameters() if p is not model.embed) * isz
+    kv_row = 2 * nl * kh * dh * isz  # one token's K and V in every layer
+    fl = 2 * n_mat * batch * prompt + 2 * head * batch + 4 * nl * batch * h * dh * prompt * (prompt + 1) / 2
+    by = w_bytes + batch * prompt * cfg.d_model * isz + batch * prompt * kv_row + batch * cfg.vocab * isz
+    prefill = max(fl / PEAK_BF16_FLOPS, by / PEAK_BYTES_PER_S)
+    decode = []
+    for j in range(1, steps):
+        length = prompt + j  # valid cache entries after this step's write
+        fl = 2 * (n_mat + head) * batch + 4 * nl * batch * h * dh * length
+        by = w_bytes + batch * cfg.d_model * isz + batch * length * kv_row + batch * cfg.vocab * isz
+        decode.append(max(fl / PEAK_BF16_FLOPS, by / PEAK_BYTES_PER_S))
+    resident = sum(p.numel() for p in model.parameters()) * isz \
+        + batch * (prompt + steps) * kv_row
+    return prefill, decode, resident
+
+
+def _decode_profile(model, cfg, batch, steps, device):
+    """``torch.profiler`` over ``steps`` decode steps after a prefill:
+    (device operations per step, device-busy microseconds per step -- the
+    union of the device events' intervals), or None when the profiler
+    records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import greedy, make_decode_step, make_prefill
+
+    b, s = batch["tokens"].shape
+    logits, caches = make_prefill(cfg, max_len=s + steps + 1, device=device)(model, batch)
+    decode = make_decode_step(cfg)
+    tok = greedy(logits)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for pos in range(s, s + steps):
+            logits, caches = decode(model, tok[:, None], caches, pos)
+            tok = greedy(logits)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, end = 0.0, float("-inf")
+    for a, z in spans:
+        if z > end:
+            busy += z - max(a, end)
+            end = z
+    return len(spans) / steps, busy / steps
+
+
+def phase10_serve(smi):
+    """The LM forward passes and serve steps on the card: reduced models
+    held card against CPU, the chunked attention against the plain one,
+    and Llama-3-8B served at full width (see the module docstring)."""
+    import copy
+    import os
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import Model, forward
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.serve import generate_timed
+    from repro_torch.models.attention import CHUNKED_THRESHOLD
+
+    say("== phase 10: LM forward passes and serve steps on the card")
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    for name in PARITY_ARCHS:
+        cfg = _moe_ample(get_arch(name).reduced())
+        cpu_model = Model(cfg, device=cpu, generator=torch.Generator().manual_seed(0))
+        card_model = copy.deepcopy(cpu_model).to(card)
+        batch = prompt_batch(cfg, 2, 12, 0, cpu)
+        on_cpu = generate_timed(cpu_model, cfg, batch, 5, device=cpu)
+        on_card = generate_timed(card_model, cfg, {k: v.to(card) for k, v in batch.items()}, 5,
+                              device=card)
+        check(torch.equal(on_card["tokens"].cpu(), on_cpu["tokens"]), f"{name}: card tokens = CPU tokens")
+        err = _assert_close(on_card["prefill_logits"].cpu(), on_cpu["prefill_logits"], 1e-4, 1e-4,
+                            f"{name}: prefill logits card vs CPU")
+        cache_err, n_leaves = 0.0, 0
+        want = dict(tree_leaves(on_cpu["caches"]))
+        for path, t in tree_leaves(on_card["caches"]):
+            check(t.device.type == card.type and t.dtype == want[path].dtype,
+                  f"{name}: cache {path} on the card")
+            cache_err = max(cache_err, _assert_close(t.cpu(), want[path], 1e-4, 1e-4,
+                                                     f"{name}: cache {path} card vs CPU"))
+            n_leaves += 1
+        check(n_leaves == len(want), f"{name}: the card's caches have the CPU's leaves")
+        say(f"  parity {name} (reduced, f32): tokens {on_card['tokens'][0].tolist()} = CPU's; "
+            f"prefill logits max |err| {err:.3g}; {n_leaves} cache leaves after prefill + 4 decode "
+            f"steps, max |err| {cache_err:.3g}")
+
+    cfg = get_arch("llama3-8b").reduced()
+    model = Model(cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 2100), generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32).to(card)
+    with torch.inference_mode():
+        plain, _, _ = forward(model, cfg, {"tokens": toks}, impl="plain")
+        chunked, _, _ = forward(model, cfg, {"tokens": toks}, impl="chunked")
+    err = _assert_close(chunked, plain, 1e-4, 1e-4, "chunked attention vs plain, S = 2100")
+    say(f"  forward impl='chunked' vs 'plain', reduced llama3-8b, 2 x 2100 tokens (3 Q and 3 KV "
+        f"blocks of 1024, padded): max |err| {err:.3g}")
+    del model, plain, chunked
+
+    cfg = get_arch("llama3-8b")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    model = Model(cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))  # phase 9's tree
+    results = {}
+    for label, b, s, steps in SERVE_CASES:
+        check((s >= CHUNKED_THRESHOLD) == (label == "b"), f"case ({label}): only (b) is chunked")
+        batch = prompt_batch(cfg, b, s, 0, card)
+        cold = generate_timed(model, cfg, batch, steps, device=card)
+        cold = (cold["prefill_s"], statistics.median(cold["decode_s"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = generate_timed(model, cfg, batch, steps, device=card)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        seq = torch.cat([batch["tokens"], r["tokens"][:, :-1].to(batch["tokens"].dtype)], dim=1)
+        with torch.inference_mode():
+            ref, _, _ = forward(model, cfg, {"tokens": seq})
+        ref = ref[:, s - 1:].float()  # predictions of generated tokens 1 .. steps
+        scale = float(ref.abs().max())
+        errs = {
+            "prefill": float((r["prefill_logits"].float() - ref[:, 0]).abs().max()),
+            "decode step 1": float((r["logits"][0].float() - ref[:, 1]).abs().max()),
+            f"decode step {steps - 1}": float((r["logits"][-1].float() - ref[:, -1]).abs().max()),
+        }
+        agree = float((ref.argmax(dim=-1) == r["tokens"].long()).float().mean())
+        check(all(torch.isfinite(t).all() for t in [r["prefill_logits"], *r["logits"]]),
+              f"case ({label}): finite logits")
+        b_pre, b_dec, resident = _serve_bounds(model, cfg, b, s, steps)
+        dec = statistics.median(r["decode_s"])
+        b_dec_med = statistics.median(b_dec)
+        wall = r["prefill_s"] + sum(r["decode_s"])
+        tps, tps_bound = b * steps / wall, b * steps / (b_pre + sum(b_dec))
+        say(f"serve ({label}): llama3-8b {cfg.dtype}, {b} x {s} prompt + {steps - 1} greedy decode steps "
+            f"(warm run; the cold one before it: prefill {cold[0] * 1e3:.3f} ms, decode "
+            f"{cold[1] * 1e3:.3f} ms/step): prefill {r['prefill_s'] * 1e3:.3f} ms "
+            f"(bound {b_pre * 1e3:.3f} ms, {100 * b_pre / r['prefill_s']:.1f}%); decode "
+            f"{dec * 1e3:.3f} ms/step median of {len(r['decode_s'])} (min "
+            f"{min(r['decode_s']) * 1e3:.3f}, max {max(r['decode_s']) * 1e3:.3f}; bound "
+            f"{b_dec_med * 1e3:.3f} ms, {100 * b_dec_med / dec:.1f}%); {tps:.1f} tok/s (bound "
+            f"{tps_bound:.1f}, {100 * tps / tps_bound:.1f}%); max_memory_allocated {peak} B above "
+            f"the {base_mem} B held before (resident bound {resident} B, {100 * resident / peak:.1f}%) "
+            f"[{smi}]")
+        say(f"  logits vs a cacheless forward over prompt + generated tokens (scale max |logit| "
+            f"{scale:.4f}): " + ", ".join(f"{k} max |err| {v:.4f} ({100 * v / scale:.2f}%)"
+                                          for k, v in errs.items())
+            + f"; greedy-token agreement {agree * 100:.1f}% of {b * steps} tokens "
+              f"(reported, not required: bf16 near-ties may flip a token)")
+        for k, v in errs.items():
+            check(v <= LOGIT_RTOL * scale, f"case ({label}) {k}: max |err| {v} beyond "
+                  f"{LOGIT_RTOL} x {scale}")
+        prof = _decode_profile(model, cfg, batch, 4, card)
+        if prof is None:
+            say("  decode profile: not measured (torch.profiler recorded no device activity)")
+        else:
+            ops, busy_us = prof
+            say(f"  decode profile (torch.profiler, 4 steps after a prefill): {ops:.1f} device "
+                f"operations per step, device busy {busy_us / 1e3:.3f} ms per step = "
+                f"{100 * busy_us / 1e3 / (dec * 1e3):.1f}% of the unprofiled median step "
+                f"(device idle {100 - 100 * busy_us / 1e3 / (dec * 1e3):.1f}%)")
+        results[label] = {"prefill_ms": r["prefill_s"] * 1e3, "decode_ms": dec * 1e3,
+                          "tok_s": tps, "peak_B": peak, "agree": agree}
+        del r, ref, seq
+    del model
+    torch.cuda.empty_cache()
+
+    label, b, s, steps = SERVE_CASES[0]
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    args = ["--arch", "llama3-8b", "--requests", str(b), "--prompt-len", str(s), "--gen-len", str(steps)]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                         capture_output=True, text=True, env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"launch.serve exited {out.returncode}: {out.stderr.strip()[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    check(len(lines) == 3 and lines[1].startswith("prefill "), f"launch.serve printed {lines}")
+    say(f"serve child: python -m repro_torch.launch.serve {' '.join(args)} (cold, one run): "
+        f"{lines[1]}; child wall {wall:.3f} s [{smi}]")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1293,10 +1532,19 @@ def main() -> int:
     lm_s = phase9_lm(smi)
     torch.cuda.synchronize()
     say(f"LM path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
+    check(not any(_build.LAUNCHES.values()), "a stencil kernel was launched on the LM path")
+
+    _build.reset_launches()  # the serve path starts here
+    serve = phase10_serve(smi)
+    torch.cuda.synchronize()
+    say(f"serve path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
+    check(not any(_build.LAUNCHES.values()), "a stencil kernel was launched on the serve path")
     say(f"seconds: sweep {sweep_s:.3f}, measure {measure_s:.2f}, fit {fit_s:.2f}, "
         f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, gateway builds "
         + ", ".join(f"{g} {t:.3f}" for g, t in gateway_build_s.items())
         + ", LM " + ", ".join(f"{k} {v:.3f}" for k, v in lm_s.items())
+        + ", serve " + ", ".join(f"({c}) prefill {v['prefill_ms'] / 1e3:.3f} decode/step "
+                                 f"{v['decode_ms'] / 1e3:.4f}" for c, v in serve.items())
         + f", total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -1,0 +1,2 @@
+"""Launch layer: the command-line entry points (``python -m
+repro_torch.launch.serve``)."""

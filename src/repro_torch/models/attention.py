@@ -1,16 +1,50 @@
-"""Attention parameters: GQA/MHA, sliding window (SWA), MLA (DeepSeek) and
-cross-attention -- the init half of the JAX package's
-``models/attention.py``. The KV-cache layout each variant serves from is
-built by :mod:`repro_torch.serve.kvcache`."""
+"""Attention variants: GQA/MHA, sliding window (SWA), MLA (DeepSeek) and
+cross-attention, with the KV-cache contract that serving uses -- the JAX
+package's ``models/attention.py``.
+
+Cache contract (built by :mod:`repro_torch.serve.kvcache`):
+
+* GQA/SWA/cross: ``{"k": (B, L, KH, Dk), "v": (B, L, KH, Dv), "idx": ()}``
+  -- ``idx`` is the number of tokens already written, a 0-d int32 tensor on
+  the cache's device; keys are stored *post-RoPE*. SWA caches are ring
+  buffers of ``window`` slots.
+* MLA: ``{"ckv": (B, L, r_kv), "krope": (B, L, Dr), "idx": ()}`` -- the
+  compressed latent is cached and decode runs the absorbed-matmul path, so
+  per-token memory is O(r_kv + Dr), not O(H*Dh).
+
+The reference returns a new cache and donates the old one; here a cache is
+updated in place (slots by ``index_copy_``, ``idx`` by ``add_``) and the
+same dict is returned. Slots are computed on the device from ``idx``, so a
+decode step reads no cache index back to the host.
+
+Long sequences use a chunked online softmax (a loop over KV blocks inside
+a loop over Q blocks, the reference's ``lax.scan`` inside ``lax.map``) so
+activation memory is O(S * block), not O(S^2). The plain path writes its
+softmax out, as the reference does; it is not
+``F.scaled_dot_product_attention``.
+"""
 
 from __future__ import annotations
 
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .layers import Init, dense_init, rmsnorm_init
+from .layers import Init, apply_rope, dense_init, mrope_rotate, pad_seq, rmsnorm, rmsnorm_init
 
-__all__ = ["Attention", "attn_init"]
+__all__ = ["Attention", "attn_init", "attention", "NEG_INF"]
+
+#: an additive bias, not -inf: a fully masked row stays finite, as in the
+#: reference
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+# Sequences at or above this length take the chunked path under impl="auto".
+CHUNKED_THRESHOLD = 8192
+Q_CHUNK = 1024
+K_CHUNK = 1024
 
 
 class Attention(nn.Module):
@@ -21,6 +55,7 @@ class Attention(nn.Module):
 
     def __init__(self, init: Init, cfg: ArchConfig, dtype, cross: bool = False):
         super().__init__()
+        self.cfg = cfg
         d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         a = cfg.attn
         if a.kind == "mla" and not cross:
@@ -38,6 +73,282 @@ class Attention(nn.Module):
             self.wv = dense_init(init, (d, kh * dh), dtype)
             self.wo = dense_init(init, (h * dh, d), dtype)
 
+    def forward(self, x, *, positions, mode="causal", cache=None, kv_source=None, impl="auto"):
+        return attention(self, self.cfg, x, positions=positions, mode=mode, cache=cache,
+                         kv_source=kv_source, impl=impl)
+
 
 def attn_init(init: Init, cfg: ArchConfig, dtype, cross: bool = False) -> Attention:
     return Attention(init, cfg, dtype, cross)
+
+
+# ---------------------------------------------------------------------------
+# Masked softmax-attention over explicit K/V (grouped heads)
+# ---------------------------------------------------------------------------
+def _mask_bias(q_pos, k_pos, mode: str, window: int) -> torch.Tensor:
+    """(B, Sq, Lk) additive f32 bias. k_pos < 0 marks invalid cache slots."""
+    q = q_pos[:, :, None].to(torch.int32)
+    k = k_pos[:, None, :].to(torch.int32)
+    ok = k >= 0
+    if mode == "causal":
+        ok = ok & (k <= q)
+        if window:
+            ok = ok & ((q - k) < window)
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, NEG_INF)
+
+
+def _sdpa(q, k, v, bias, scale):
+    """q: (B,Sq,H,Dk) k: (B,Lk,KH,Dk) v: (B,Lk,KH,Dv) bias: (B,Sq,Lk)."""
+    b, sq, h, dk = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, sq, kh, g, dk)
+    scores = torch.einsum("bqkgd,blkd->bkgql", qg, k).float() * scale
+    scores = scores + bias[:, None, None, :, :]
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgql,blke->bqkge", w, v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale):
+    """Online-softmax attention; O(S*block) activation memory."""
+    b, sq, h, dk = q.shape
+    lk = k.shape[1]
+    kh = k.shape[2]
+    g = h // kh
+    dv = v.shape[-1]
+    q_chunks = -(-sq // Q_CHUNK)
+    k_chunks = -(-lk // K_CHUNK)
+    # pad to chunk multiples; pad keys are invalid slots (position -1)
+    sq_p, lk_p = q_chunks * Q_CHUNK, k_chunks * K_CHUNK
+    qp = pad_seq(q, sq_p - sq).reshape(b, q_chunks, Q_CHUNK, kh, g, dk)
+    qpos = pad_seq(q_pos, sq_p - sq, 0).reshape(b, q_chunks, Q_CHUNK)
+    kp = pad_seq(k, lk_p - lk).reshape(b, k_chunks, K_CHUNK, kh, dk)
+    vp = pad_seq(v, lk_p - lk).reshape(b, k_chunks, K_CHUNK, kh, dv)
+    kpos = pad_seq(k_pos, lk_p - lk, -1).reshape(b, k_chunks, K_CHUNK)
+
+    outs = []
+    for qi in range(q_chunks):
+        qc, qpc = qp[:, qi], qpos[:, qi]  # (B, Qc, KH, G, Dk), (B, Qc)
+        m = torch.full((b, kh, g, Q_CHUNK), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kh, g, Q_CHUNK), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, kh, g, Q_CHUNK, dv), dtype=torch.float32, device=q.device)
+        for ki in range(k_chunks):
+            kc, vc, kpc = kp[:, ki], vp[:, ki], kpos[:, ki]
+            s = torch.einsum("bqkgd,blkd->bkgql", qc, kc).float() * scale
+            s = s + _mask_bias(qpc, kpc, mode, window)[:, None, None, :, :]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgql,blke->bkgqe", p.to(vc.dtype), vc
+            ).float()
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.movedim(3, 1))  # (B, Qc, KH, G, Dv)
+    out = torch.stack(outs, dim=1).reshape(b, sq_p, h, dv)[:, :sq]
+    return out.to(v.dtype)
+
+
+def _attend(q, k, v, q_pos, k_pos, mode, window, impl):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    long_seq = max(q.shape[1], k.shape[1]) >= CHUNKED_THRESHOLD
+    if impl == "chunked" or (impl == "auto" and long_seq and q.shape[1] > 1):
+        return _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale)
+    bias = _mask_bias(q_pos, k_pos, mode, window)
+    return _sdpa(q, k, v, bias, scale)
+
+
+# ---------------------------------------------------------------------------
+# Cache write helpers
+# ---------------------------------------------------------------------------
+def _write_cache(cache: Dict, updates: Dict, positions, ring: int = 0) -> Dict:
+    """Write S new entries into the cache at ``idx`` (ring-buffered if SWA),
+    in place, and advance ``idx`` by S.
+
+    ``positions`` are the absolute token positions (B, S) of the updates;
+    slot bookkeeping uses idx (same for all batch rows). A linear cache
+    writes at ``clamp(idx, 0, L - S)``: the reference's
+    ``lax.dynamic_update_slice_in_dim`` clamps its start so the update
+    fits, and so does this.
+    """
+    idx = cache["idx"]
+    s = positions.shape[1]
+    for name, val in updates.items():
+        buf = cache[name]
+        cap = buf.shape[1]
+        if ring and s >= cap:
+            # keep only the last `cap` entries, ring-placed
+            val = val[:, -cap:]
+            slots = (idx + torch.arange(s - cap, s, device=buf.device)) % cap
+        elif ring:
+            slots = (idx + torch.arange(s, device=buf.device)) % cap
+        else:
+            if s > cap:
+                raise ValueError(f"cannot write {s} entries into a cache of {cap} slots")
+            slots = torch.clamp(idx, 0, cap - s) + torch.arange(s, device=buf.device)
+        buf.index_copy_(1, slots.long(), val.to(buf.dtype))
+    idx.add_(s)
+    return cache
+
+
+def _cache_positions(cache: Dict, ring: int = 0) -> torch.Tensor:
+    """Absolute position per cache slot, -1 for unwritten slots. (B, L)."""
+    idx = cache["idx"]
+    first = next(k for k in cache if k != "idx")
+    b, cap = cache[first].shape[:2]
+    slots = torch.arange(cap, device=idx.device)
+    minus1 = torch.full((), -1, dtype=slots.dtype, device=idx.device)
+    if ring:
+        # slot s holds position p where p % cap == s, for the last `cap` p's
+        newest = idx - 1
+        pos = newest - ((newest - slots) % cap)
+        pos = torch.where((pos >= 0) & (pos < idx), pos, minus1)
+    else:
+        pos = torch.where(slots < idx, slots, minus1)
+    return pos[None, :].expand(b, cap)
+
+
+# ---------------------------------------------------------------------------
+# Public entry
+# ---------------------------------------------------------------------------
+def attention(
+    params: Attention,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    mode: str = "causal",  # causal | bidir | cross
+    cache: Optional[Dict] = None,
+    kv_source: Optional[torch.Tensor] = None,  # encoder states for cross-attn
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Returns (output (B,S,d), updated cache or None).
+
+    * training/encoder: ``cache=None`` -- K/V computed inline.
+    * prefill: pass a fresh cache; S tokens are written, attention runs
+      against the inline K/V (cheaper than reading back).
+    * decode: pass the live cache; S == 1 (or a small chunk) is appended and
+      attention runs against the cache contents.
+    """
+    a = cfg.attn
+    if a.kind == "mla" and mode != "cross":
+        return _mla_attention(params, cfg, x, positions, cache, impl)
+
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    b, s, _ = x.shape
+    ring = a.window if a.kind == "swa" else 0
+    is_mrope = cfg.rope == "mrope"
+    pos_ids = positions[:, 0] if is_mrope else positions  # (B,S) temporal ids
+
+    q = (x @ params.wq).reshape(b, s, h, dh)
+
+    if mode == "cross":
+        if cache is not None and kv_source is None:
+            k, v = cache["k"], cache["v"]  # precomputed at prefill
+            k_pos = _cache_positions(cache)
+            out = _attend(q, k, v, pos_ids, k_pos, "bidir", 0, impl)
+            return _po(params, out, b, s), cache
+        if kv_source is None:
+            raise ValueError("cross-attention needs kv_source or a filled cache")
+        lk = kv_source.shape[1]
+        k = (kv_source @ params.wk).reshape(b, lk, kh, dh)
+        v = (kv_source @ params.wv).reshape(b, lk, kh, dh)
+        k_pos = torch.arange(lk, device=x.device)[None].expand(b, lk)
+        out = _attend(q, k, v, pos_ids, k_pos, "bidir", 0, impl)
+        if cache is not None:
+            cache = _write_cache(cache, {"k": k, "v": v}, k_pos)
+        return _po(params, out, b, s), cache
+
+    k = (x @ params.wk).reshape(b, s, kh, dh)
+    v = (x @ params.wv).reshape(b, s, kh, dh)
+    if cfg.rope == "standard":
+        q = apply_rope(q, pos_ids, cfg.rope_theta)
+        k = apply_rope(k, pos_ids, cfg.rope_theta)
+    elif is_mrope:
+        q = mrope_rotate(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = mrope_rotate(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    # learned/sinusoidal positions are added at the embedding level
+
+    window = a.window if a.kind == "swa" else 0
+    if cache is None:
+        out = _attend(q, k, v, pos_ids, pos_ids, mode, window, impl)
+        return _po(params, out, b, s), None
+
+    prefill = s > 1
+    cache = _write_cache(cache, {"k": k, "v": v}, pos_ids, ring=ring)
+    if prefill:
+        # inline K/V already cover every valid key (ring keeps last window)
+        out = _attend(q, k, v, pos_ids, pos_ids, mode, window, impl)
+    else:
+        k_pos = _cache_positions(cache, ring=ring)
+        out = _attend(q, cache["k"], cache["v"], pos_ids, k_pos, mode, window, impl)
+    return _po(params, out, b, s), cache
+
+
+def _po(params, out, b, s):
+    """Output projection over flattened heads."""
+    return out.reshape(b, s, -1) @ params.wo
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank latent KV + decoupled RoPE
+# ---------------------------------------------------------------------------
+def _mla_project_q(params, cfg, x, pos_ids):
+    a = cfg.attn
+    b, s, _ = x.shape
+    h, dh, dr = cfg.n_heads, cfg.head_dim_, a.rope_head_dim
+    q_lat = rmsnorm(params.q_norm, x @ params.wq_a)
+    q = (q_lat @ params.wq_b).reshape(b, s, h, dh + dr)
+    q_nope, q_rope = q[..., :dh], q[..., dh:]
+    q_rope = apply_rope(q_rope, pos_ids, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latents(params, cfg, x, pos_ids):
+    a = cfg.attn
+    kv = x @ params.wkv_a
+    ckv, k_rope = kv[..., : a.kv_lora_rank], kv[..., a.kv_lora_rank :]
+    ckv = rmsnorm(params.kv_norm, ckv)
+    k_rope = apply_rope(k_rope[:, :, None, :], pos_ids, cfg.rope_theta)[:, :, 0]
+    return ckv, k_rope  # (B,S,r_kv), (B,S,Dr)
+
+
+def _mla_attention(params, cfg, x, positions, cache, impl):
+    a = cfg.attn
+    b, s, _ = x.shape
+    h, dh, dr, dv = cfg.n_heads, cfg.head_dim_, a.rope_head_dim, a.v_head_dim
+    r_kv = a.kv_lora_rank
+    pos_ids = positions
+    q_nope, q_rope = _mla_project_q(params, cfg, x, pos_ids)
+    ckv, k_rope = _mla_latents(params, cfg, x, pos_ids)
+    scale = 1.0 / math.sqrt(dh + dr)
+
+    wkv_b = params.wkv_b.reshape(r_kv, h, dh + dv)
+    wk_b, wv_b = wkv_b[..., :dh], wkv_b[..., dh:]
+
+    decode = cache is not None and s == 1
+    if cache is not None:
+        cache = _write_cache(cache, {"ckv": ckv, "krope": k_rope}, pos_ids)
+
+    if not decode:
+        # train/prefill: expand per-position K/V (activation-sized, fine)
+        k_nope = torch.einsum("blr,rhe->blhe", ckv, wk_b)
+        v = torch.einsum("blr,rhe->blhe", ckv, wv_b)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = _attend(q, k, v, pos_ids, pos_ids, "causal", 0, impl)
+    else:
+        # absorbed decode: score/context in latent space, O(L * r_kv)
+        k_pos = _cache_positions(cache)
+        q_lat = torch.einsum("bshe,rhe->bshr", q_nope, wk_b)  # absorb W^UK
+        s_lat = torch.einsum("bshr,blr->bhsl", q_lat, cache["ckv"]).float()
+        s_rope = torch.einsum("bshe,ble->bhsl", q_rope, cache["krope"]).float()
+        scores = (s_lat + s_rope) * scale
+        scores = scores + _mask_bias(pos_ids, k_pos, "causal", 0)[:, None, :, :]
+        w = torch.softmax(scores, dim=-1).to(x.dtype)  # x's dtype, as the reference
+        ctx_lat = torch.einsum("bhsl,blr->bshr", w, cache["ckv"])
+        out = torch.einsum("bshr,rhe->bshe", ctx_lat, wv_b)  # expand W^UV
+    return out.reshape(b, s, h * dv) @ params.wo, cache

@@ -1,28 +1,42 @@
-"""Block and stack parameters -- the init half of the JAX package's
-``models/transformer.py``.
+"""Block and stack assembly -- the JAX package's ``models/transformer.py``.
 
 A *block* is a pre-norm mixer (attention or SSD) plus a pre-norm FFN (MLP
 or MoE), with an optional cross-attention sublayer (enc-dec decoders). A
 *stack* is a list of **segments** ``(pattern, repeats)``: the segment runs
 ``pattern * repeats`` layers. The reference stacks each pattern slot's
-parameters over the repeats (one ``lax.scan`` body per slot); here a stack
-is an ``nn.ModuleList`` with one :class:`Block` per layer, in execution
-order, and :meth:`Stack.layer_index` maps (segment, repeat, slot) to it.
+parameters over the repeats and ``lax.scan``s them; here a stack is an
+``nn.ModuleList`` with one :class:`Block` per layer, in execution order,
+:func:`layer_index` maps (segment, repeat, slot) to it, and
+:func:`stack_apply` walks the layers with the per-layer cache list that
+:func:`repro_torch.serve.kvcache.init_caches` builds.
+
+Rematerialization (the reference's ``remat`` policies) belongs to
+training and is not ported yet: any ``remat`` but ``"none"`` raises.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .attention import attn_init
-from .layers import Init, mlp_init, rmsnorm_init
-from .moe import moe_init
-from .ssm import ssm_init
+from .attention import attention, attn_init
+from .layers import Init, mlp, mlp_init, rmsnorm, rmsnorm_init
+from .moe import moe_apply, moe_init
+from .ssm import ssm_apply, ssm_init
 
-__all__ = ["segments", "block_init", "stack_init", "Block", "Stack"]
+__all__ = [
+    "segments",
+    "layer_index",
+    "block_init",
+    "block_apply",
+    "stack_init",
+    "stack_apply",
+    "Block",
+    "Stack",
+]
 
 Segments = List[Tuple[Tuple[Tuple[str, str], ...], int]]
 
@@ -46,9 +60,20 @@ def segments(cfg: ArchConfig) -> Segments:
     return segs
 
 
+def layer_index(segs: Segments, seg: int, rep: int, slot: int) -> int:
+    """The layer that runs repeat ``rep`` of slot ``slot`` of segment
+    ``seg`` (the reference's ``seg{seg}[slot]`` leaves, row ``rep``)."""
+    start = sum(len(p) * r for p, r in segs[:seg])
+    return start + rep * len(segs[seg][0]) + slot
+
+
 class Block(nn.Module):
+    """``kind`` is the layer's ``(mixer, ffn)`` pair; ``cross`` says whether
+    it has a cross-attention sublayer."""
+
     def __init__(self, init: Init, cfg: ArchConfig, mixer: str, ffn: str, dtype, cross: bool = False):
         super().__init__()
+        self.cfg, self.kind, self.has_cross = cfg, (mixer, ffn), cross
         self.norm1 = rmsnorm_init(init, cfg.d_model, dtype, cfg.rms_offset)
         self.mixer = attn_init(init, cfg, dtype) if mixer == "attn" else ssm_init(init, cfg, dtype)
         if cross:
@@ -60,6 +85,10 @@ class Block(nn.Module):
                 moe_init(init, cfg, dtype) if ffn == "moe"
                 else mlp_init(init, cfg.d_model, cfg.d_ff, cfg.act, dtype)
             )
+
+    def forward(self, x, *, positions, mode="causal", cache=None, enc_out=None, impl="auto"):
+        return block_apply(self, self.cfg, *self.kind, x, positions=positions, mode=mode,
+                           cache=cache, enc_out=enc_out, impl=impl, cross=self.has_cross)
 
 
 def block_init(init: Init, cfg: ArchConfig, mixer: str, ffn: str, dtype, cross: bool = False) -> Block:
@@ -73,6 +102,7 @@ class Stack(nn.Module):
     def __init__(self, init: Init, cfg: ArchConfig, dtype, cross: bool = False,
                  segs: Optional[Segments] = None):
         super().__init__()
+        self.cfg, self.cross = cfg, cross
         self.segs = segs if segs is not None else segments(cfg)
         self.layers = nn.ModuleList(
             block_init(init, cfg, mixer, ffn, dtype, cross=cross)
@@ -81,13 +111,100 @@ class Stack(nn.Module):
             for mixer, ffn in pattern
         )
 
-    def layer_index(self, seg: int, rep: int, slot: int) -> int:
-        """The layer that runs repeat ``rep`` of slot ``slot`` of segment
-        ``seg`` (the reference's ``seg{seg}[slot]`` leaves, row ``rep``)."""
-        start = sum(len(p) * r for p, r in self.segs[:seg])
-        return start + rep * len(self.segs[seg][0]) + slot
+    def forward(self, x, *, positions, mode="causal", caches=None, enc_out=None, impl="auto",
+                remat="none"):
+        return stack_apply(self, self.cfg, x, positions=positions, mode=mode, caches=caches,
+                           enc_out=enc_out, impl=impl, remat=remat, cross=self.cross)
 
 
 def stack_init(init: Init, cfg: ArchConfig, dtype, *, cross: bool = False,
                segs: Optional[Segments] = None) -> Stack:
     return Stack(init, cfg, dtype, cross=cross, segs=segs)
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+def block_apply(
+    params: Block,
+    cfg: ArchConfig,
+    mixer: str,
+    ffn: str,
+    x: torch.Tensor,
+    *,
+    positions,
+    mode: str,
+    cache: Optional[Dict],
+    enc_out: Optional[torch.Tensor],
+    impl: str,
+    cross: bool = False,
+):
+    """Returns (x, new_cache, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache: Dict = {}
+    h = rmsnorm(params.norm1, x, cfg.rms_offset)
+    mixer_cache = cache.get("mixer") if cache else None
+    if mixer == "attn":
+        h, c = attention(params.mixer, cfg, h, positions=positions, mode=mode,
+                         cache=mixer_cache, impl=impl)
+    else:
+        h, c = ssm_apply(params.mixer, cfg, h, cache=mixer_cache)
+    if c is not None:
+        new_cache["mixer"] = c
+    x = x + h
+    if cross:
+        h = rmsnorm(params.norm_cross, x, cfg.rms_offset)
+        cross_cache = cache.get("cross") if cache else None
+        h, c = attention(params.cross, cfg, h, positions=positions, mode="cross",
+                         cache=cross_cache, kv_source=enc_out, impl=impl)
+        if c is not None:
+            new_cache["cross"] = c
+        x = x + h
+    if ffn != "none":
+        h = rmsnorm(params.norm2, x, cfg.rms_offset)
+        if ffn == "moe":
+            h, aux = moe_apply(params.ffn, cfg, h)
+        else:
+            h = mlp(params.ffn, h, cfg.act)
+        x = x + h
+    return x, (new_cache or None), aux
+
+
+def stack_apply(
+    params: Stack,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    *,
+    positions,
+    mode: str = "causal",
+    caches: Optional[List[Dict]] = None,
+    enc_out=None,
+    impl: str = "auto",
+    remat: str = "none",
+    cross: bool = False,
+):
+    """Run the full stack. Returns (x, new_caches, aux_sum).
+
+    ``caches`` is None (training) or one cache dict per layer, in the
+    stack's execution order (``init_caches(...)["stack"]``); the layers
+    update them in place and ``new_caches`` lists the same dicts.
+    """
+    if remat != "none":
+        raise NotImplementedError(
+            f"remat={remat!r}: rematerialization comes with training "
+            "(ROADMAP Queue 1 item 2); the port's forward runs remat='none'"
+        )
+    if caches is not None and len(caches) != len(params.layers):
+        raise ValueError(f"{len(caches)} layer caches for {len(params.layers)} layers")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = [] if caches is not None else None
+    for i, layer in enumerate(params.layers):
+        x, c_out, aux = block_apply(
+            layer, cfg, *layer.kind, x, positions=positions, mode=mode,
+            cache=caches[i] if caches is not None else None,
+            enc_out=enc_out, impl=impl, cross=cross,
+        )
+        aux_total = aux_total + aux
+        if new_caches is not None:
+            new_caches.append(c_out)
+    return x, new_caches, aux_total

@@ -279,3 +279,82 @@ def test_lm_model_materialises_on_the_card(card):
             assert torch.equal(p, pb[key]), (name, key)
             n += p.numel()
         assert n == count_params(cfg)
+
+
+def _ample(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=64.0)) \
+        if cfg.moe else cfg
+
+
+def _serve_batch(cfg, device, b=2, s=12):
+    g = torch.Generator().manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g, dtype=torch.int32)}
+    if cfg.frontend or cfg.enc_dec:
+        batch["frontend"] = torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=g) * 0.05
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b", "mamba2-780m", "deepseek-v3-671b",
+                                  "whisper-medium", "qwen2-vl-2b"])
+def test_reduced_generate_on_the_card_equals_the_cpu(card, name):
+    """One seeded tree on the CPU and on the card, f32 without TF32: the
+    same greedy tokens, and prefill logits within 1e-4."""
+    import copy
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import generate, make_prefill
+
+    cfg = _ample(get_arch(name).reduced())
+    cpu_model = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(card)
+    batch = _serve_batch(cfg, "cpu")
+    on_card = {k: v.to(card) for k, v in batch.items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = generate(cpu_model, cfg, batch, 5, device="cpu")
+        got = generate(card_model, cfg, on_card, 5)
+        lw, _ = make_prefill(cfg, max_len=20, device="cpu")(cpu_model, batch)
+        lg, caches = make_prefill(cfg, max_len=20)(card_model, on_card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    torch.testing.assert_close(lg.cpu(), lw, rtol=1e-4, atol=1e-4)
+    assert all(t.is_cuda for c in caches["stack"] for part in c.values() for t in part.values())
+
+
+def test_forward_builds_no_tensor_off_the_card(card):
+    """Every tensor the serve steps and a forward make lies on the card,
+    and no value is read back to the host (no ``.item()``) on the way."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, forward
+    from repro_torch.serve import generate
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.devices, self.syncs = set(), []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "_local_scalar_dense" in str(func):
+                self.syncs.append(str(func))
+            out = func(*args, **(kwargs or {}))
+            self.devices |= {t.device.type for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)}
+            return out
+
+    for name in ("llama3-8b", "mixtral-8x22b", "deepseek-v3-671b", "jamba-v0.1-52b",
+                 "whisper-medium", "qwen2-vl-2b"):
+        cfg = _ample(get_arch(name).reduced())
+        model = Model(cfg, generator=torch.Generator(device=card).manual_seed(1))
+        batch = _serve_batch(cfg, card)
+        with Seen() as seen, torch.no_grad():
+            forward(model, cfg, batch)
+            generate(model, cfg, batch, 3)
+        assert seen.devices == {"cuda"}, (name, seen.devices)
+        assert not seen.syncs, (name, seen.syncs)

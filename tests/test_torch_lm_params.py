@@ -12,8 +12,8 @@ caches (``repro_torch.serve.kvcache``), against the JAX package's.
   the port initialises itself, from an explicit ``torch.Generator``.
 * The caches: per-layer caches hold the reference's stacked leaves (shape
   and dtype, ``idx`` once per layer), on the CPU and on the meta device.
-* Without a card and without a device, ``Model`` raises; a model has no
-  forward yet.
+* Without a card and without a device, ``Model`` raises; a model on the
+  CPU, asked for, runs its forward there.
 """
 
 import math
@@ -154,8 +154,9 @@ def test_no_card_means_no_model(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_reference_params(cfg, _reference_tree(RC.get_arch("llama3-8b").reduced()))
     model = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 4, dtype=torch.long))
+    with torch.no_grad():
+        logits, _, _ = model({"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    assert logits.shape == (1, 4, cfg.vocab) and logits.device.type == "cpu"
 
 
 def test_carry_refuses_a_tree_that_does_not_fit():
