@@ -77,12 +77,34 @@ the sweep again on the calibrated machine. Phases:
    agreement reported; prefill ms, decode ms per step, tokens/s and
    ``max_memory_allocated`` beside their bounds (``_serve_bounds``); and
    ``python -m repro_torch.launch.serve --arch llama3-8b`` as a child at
-   case (a)'s shape. No kernel lies on this path either.
+   case (a)'s shape. No kernel lies on this path either;
+11. training (``repro_torch.train``, ``optim``, ``data``, ``checkpoint``):
+   (a) one train step (remat ``"dots"``, two microbatches; int8 gradient
+   compression for ``TRAIN_COMPRESS_ARCH``) on the six reduced archs of
+   phase 10, from one seeded state on the CPU and on the card, f32
+   without TF32: metrics within 1e-5 relative, gradients (``m`` after the
+   first step) within 1e-4 of each leaf's largest entry (one int8 bin
+   where compression met a tie); (b) InternLM2-1.8B at full width in bf16
+   through ``Trainer``: train_4k's 4,096 tokens per sequence, 8 sequences
+   per step in 4 microbatches, ``remat="full"``, AdamW with f32 moments,
+   6 steps, an async checkpoint every 3 (``keep=1``, in a temporary
+   directory under ``build/`` that must hold two), a fault injected at
+   step 4, so the run restores the step-3 checkpoint into its own tensors
+   and replays step 3, whose ``lm_loss`` must equal the first pass's (or,
+   if the bits differ, lie within 1e-3 relative, with the first
+   nondeterministic operation printed); the first ``lm_loss`` within 0.5
+   of ln(92,544) and the last below it; step ms, tokens/s, peak memory and
+   checkpoint seconds beside their bounds (``_train_bound``), and a
+   ``torch.profiler`` count of one step's device operations and busy
+   share; (c) ``python -m repro_torch.launch.train --arch internlm2-1.8b
+   --reduced --steps 20`` as a child (train_4k's sequence, the batch cut
+   to 8, remat full). No kernel lies on this path either.
 
 The launch counters are set to 0 just before phase 3 and read just after
 phase 5, and again just before and after phase 7: every kernel must have
 been launched on the main path, and K1/K2 on the served path; they are
-set to 0 before phase 9 and must read 0 after it, and again around phase 10. A failed
+set to 0 before phase 9 and must read 0 after it, and again around phases
+10 and 11. A failed
 check raises; nothing is caught. The last three lines are a JSON object of
 per-kernel numbers (launches: main path plus served path), the card's name
 and power limit as ``nvidia-smi`` gives them, and the device record.
@@ -111,6 +133,13 @@ PARITY_ARCHS = ("llama3-8b", "mixtral-8x22b", "mamba2-780m", "deepseek-v3-671b",
 #: full-width Llama-3-8B cases of phase 10: (label, batch, prompt, generated
 #: tokens = 1 from the prefill + the decode steps)
 SERVE_CASES = (("a", 4, 512, 33), ("b", 1, 8192, 5))
+#: phase 11 (b): InternLM2-1.8B trained at full width on train_4k's
+#: sequence, the global batch cut from 256 to 8 sequences in 4 microbatches
+#: of 2; checkpoints every 3 steps, a fault at step 4 (replays step 3)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_MICRO, TRAIN_LR = "internlm2-1.8b", 8, 4, 1e-3
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 6, 3, 4
+#: phase 11 (a): the parity arch that also runs int8 gradient compression
+TRAIN_COMPRESS_ARCH = "llama3-8b"
 #: bf16 logits of the serve steps against a cacheless forward: max |diff|
 #: within this fraction of the largest |logit|. bf16 keeps 8 significant
 #: bits (a step of 2^-8 = 0.4% of a value); the two paths differ only in
@@ -1317,7 +1346,6 @@ def _decode_profile(model, cfg, batch, steps, device):
     union of the device events' intervals), or None when the profiler
     records no device activity."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import greedy, make_decode_step, make_prefill
@@ -1332,6 +1360,16 @@ def _decode_profile(model, cfg, batch, steps, device):
             logits, caches = decode(model, tok[:, None], caches, pos)
             tok = greedy(logits)
         torch.cuda.synchronize()
+    busy = _device_busy(prof)
+    return None if busy is None else (busy[0] / steps, busy[1] / steps)
+
+
+def _device_busy(prof):
+    """(device operations, device-busy microseconds: the union of the
+    device events' intervals) of a ``torch.profiler`` trace, or None when
+    it recorded no device activity."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     if not spans:
@@ -1341,7 +1379,7 @@ def _decode_profile(model, cfg, batch, steps, device):
         if z > end:
             busy += z - max(a, end)
             end = z
-    return len(spans) / steps, busy / steps
+    return len(spans), busy
 
 
 def phase10_serve(smi):
@@ -1481,6 +1519,280 @@ def phase10_serve(smi):
     return results
 
 
+def _train_state_to(state, device):
+    """A copy of a train state on ``device``."""
+    import copy
+
+    def move(tensors):
+        return {k: v.to(device, copy=True) for k, v in tensors.items()}
+
+    out = {"params": copy.deepcopy(state["params"]).to(device),
+           "opt": {"m": move(state["opt"]["m"]), "v": move(state["opt"]["v"]),
+                   "step": state["opt"]["step"].to(device, copy=True)}}
+    if "comp" in state:
+        out["comp"] = move(state["comp"])
+    return out
+
+
+def _train_bound(cfg, batch, seq):
+    """Least time of one train step of a dense GQA model on this card:
+    (seconds, what bounds it, operations, bytes). Operations: 6 per
+    parameter of the products (every matrix but the embedding, whose rows
+    are gathered) per token, plus QK^T and PV over the full S x S as the
+    reference computes them, forward and backward (3 x 4 S^2 H d_h per
+    layer and sequence), at the bf16 tensor-core peak; the recompute of
+    remat is not counted. Bytes: the parameters and the f32 moments each
+    read and written once, and the batch read, at the HBM peak."""
+    import torch
+
+    from repro_torch.models import count_params
+    from repro_torch.models.layers import torch_dtype
+
+    n = count_params(cfg)
+    tokens = batch * seq
+    ops = 6 * (n - cfg.vocab * cfg.d_model) * tokens \
+        + 3 * cfg.n_layers * 4 * seq ** 2 * cfg.n_heads * cfg.head_dim_ * batch
+    isz = torch.finfo(torch_dtype(cfg.dtype)).bits // 8
+    by = 2 * (isz * n) + 2 * (2 * 4 * n) + 2 * 4 * tokens
+    t_ops, t_by = ops / PEAK_BF16_FLOPS, by / PEAK_BYTES_PER_S
+    return max(t_ops, t_by), ("operations" if t_ops >= t_by else "bytes"), ops, by
+
+
+def _first_nondeterministic_op(fn):
+    """Run ``fn`` twice under a dispatch mode that checksums every
+    operation's output; the first operation whose outputs differ between
+    the runs, or None."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.sums = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and out.is_floating_point():
+                self.sums.append((str(func), out.double().sum().item()))
+            return out
+
+    runs = []
+    for _ in range(2):
+        with torch.no_grad(), Record() as r:
+            fn()
+        runs.append(r.sums)
+    for (name, a), (_, b) in zip(*runs):
+        if a != b:
+            return name
+    return None
+
+
+def phase11_train(smi):
+    """Training on the card: reduced archs held card against CPU, then
+    InternLM2-1.8B trained at full width through a fault, a restore and a
+    replay, and the ``launch.train`` CLI as a child (see the module
+    docstring)."""
+    import math
+    import os
+    import statistics
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models import count_params
+    from repro_torch.models.convert import reference_layout
+    from repro_torch.models.layers import torch_dtype
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, TrainConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import _loss_fn
+
+    say("== phase 11: training on the card")
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    tiny = ShapeSpec("tiny", 32, 4, "train")
+    worst = {"metric": 0.0, "grad": 0.0}
+    for name in PARITY_ARCHS:
+        cfg = _moe_ample(get_arch(name).reduced())
+        compress = name == TRAIN_COMPRESS_ARCH
+        tcfg = TrainConfig(microbatches=2, remat="dots", compress_grads=compress)
+        cpu_state = init_train_state(cfg, tcfg, device=cpu)
+        card_state = _train_state_to(cpu_state, card)
+        batch = make_batch(cfg, tiny, DataConfig(), 0, cpu)
+        _, want = make_train_step(cfg, tcfg, device=cpu)(cpu_state, batch)
+        _, got = make_train_step(cfg, tcfg)(card_state, {k: v.to(card) for k, v in batch.items()})
+        check(set(got) == set(want), f"{name}: the card's metrics are the CPU's")
+        m_err = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+                    for k in want)
+        # m after the first step is (1 - b1) x the clipped gradient; compared
+        # per reference leaf (a segment's layers share one int8 scale)
+        g_err = 0.0
+        for _, names, _ in reference_layout(cpu_state["params"]):
+            err = max(float((card_state["opt"]["m"][k].cpu() - cpu_state["opt"]["m"][k])
+                            .abs().max()) for k in names)
+            top = max(float(cpu_state["opt"]["m"][k].abs().max()) for k in names)
+            g_err = max(g_err, err / max(top, 1e-30))
+        slack = 1 / 127 + 1e-4 if compress else 1e-4  # an int8 tie moves one bin
+        check(m_err <= 1e-5, f"{name}: train-step metrics card vs CPU, max relative err {m_err}")
+        check(g_err <= slack, f"{name}: gradients card vs CPU, max |err| / max |g| {g_err}")
+        worst = {"metric": max(worst["metric"], m_err), "grad": max(worst["grad"], g_err)}
+        say(f"  train parity {name} (reduced, f32, remat dots, 2 microbatches"
+            f"{', int8 compression' if compress else ''}): loss {float(got['loss']):.6f} = CPU "
+            f"{float(want['loss']):.6f}; metrics max relative err {m_err:.3g}; gradients max "
+            f"|err| / max |g| per reference leaf {g_err:.3g} [{smi}]")
+    say(f"  train parity, all six: metrics max relative err {worst['metric']:.3g}, gradients "
+        f"{worst['grad']:.3g} [{smi}]")
+
+    cfg = get_arch(TRAIN_ARCH)
+    shape = SHAPES["train_4k"]
+    bound_s, bound_by, ops, by = _train_bound(cfg, TRAIN_BATCH, shape.seq_len)
+    tokens = TRAIN_BATCH * shape.seq_len
+    n = count_params(cfg)
+    resident = (torch.finfo(torch_dtype(cfg.dtype)).bits // 8) * n + 2 * 4 * n
+    accum = 4 * n
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=root)
+    free = shutil.disk_usage(ckpt_dir).free
+    say(f"train (b): checkpoints in {ckpt_dir}: {free} B free; a checkpoint is {resident} B "
+        f"({cfg.dtype} params + f32 m and v), up to two on disk at once [{smi}]")
+    check(free >= 2 * resident, f"{ckpt_dir} has {free} B free, less than two checkpoints "
+          f"({2 * resident} B); phase 11 (b) does not run smaller")
+    fired = []
+
+    def fault(step):
+        if step == TRAIN_FAULT_AT and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected fault at step {step}")
+
+    tcfg = TrainConfig(microbatches=TRAIN_MICRO, remat="full",
+                       opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS))
+    run = TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=ckpt_dir, ckpt_every=TRAIN_CKPT_EVERY, keep=1,
+                        batch_override=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, shape, card, tcfg, run, DataConfig(), fault_hook=fault)
+    t0 = time.perf_counter()
+    out = trainer.train()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    hist = out["metrics"]
+    check(out["step"] == TRAIN_STEPS and out["failures"] == 1 and fired == [TRAIN_FAULT_AT],
+          f"the run ended at step {out['step']} with {out['failures']} failures")
+    order = [m["step"] for m in hist]
+    replay_from = TRAIN_FAULT_AT - TRAIN_FAULT_AT % TRAIN_CKPT_EVERY
+    want_order = list(range(TRAIN_FAULT_AT)) + list(range(replay_from, TRAIN_STEPS))
+    check(order == want_order, f"steps run {order}, want {want_order}")
+    first_pass = hist[replay_from]["lm_loss"]
+    replayed = hist[TRAIN_FAULT_AT]["lm_loss"]
+    if replayed == first_pass:
+        replay_note = "bit for bit"
+    else:
+        state = out["state"]
+        b = make_batch(cfg, shape, DataConfig(), replay_from, card, batch_override=TRAIN_BATCH)
+        op = _first_nondeterministic_op(
+            lambda: _loss_fn(state["params"], cfg, tcfg, {k: v[:2] for k, v in b.items()}, 8))
+        replay_note = (f"differs by {abs(replayed - first_pass) / first_pass:.3g} relative; "
+                       f"first nondeterministic operation: {op}")
+        check(abs(replayed - first_pass) <= 1e-3 * abs(first_pass),
+              f"replayed step {replay_from}: lm_loss {replayed} vs {first_pass}")
+    ln_v = math.log(cfg.vocab)
+    first, last = hist[0]["lm_loss"], hist[-1]["lm_loss"]
+    check(abs(first - ln_v) <= 0.5, f"first lm_loss {first} is not within 0.5 of ln(V) {ln_v}")
+    check(last < first, f"the loss did not fall: {first} -> {last}")
+    for m in hist:
+        check(all(math.isfinite(v) for v in m.values()), f"step {m['step']}: metrics not finite")
+    times = trainer.step_times
+    med = statistics.median(times)
+    saves = trainer.checkpointer.saves
+    check(all(s["bytes"] == resident + 4 for s in saves),
+          f"checkpoint bytes {[s['bytes'] for s in saves]}, want {resident} + the 4-byte step")
+    say(f"train (b): {cfg.name} {cfg.dtype} at full width ({n} parameters), train_4k sequence "
+        f"{shape.seq_len}, global batch cut from {shape.global_batch} to {TRAIN_BATCH} in "
+        f"{TRAIN_MICRO} microbatches, remat full, AdamW f32 moments (lr {TRAIN_LR}), "
+        f"{TRAIN_STEPS} steps with a fault at step {TRAIN_FAULT_AT}: steps run {order}; "
+        f"wall {wall:.3f} s [{smi}]")
+    say(f"  lm_loss per step: " + ", ".join(f"{m['step']}: {m['lm_loss']:.4f}" for m in hist)
+        + f"; first {first:.4f} vs ln(V) = {ln_v:.4f}; last {last:.4f}; replayed step "
+          f"{replay_from}: {replayed:.6f} vs first pass {first_pass:.6f} ({replay_note}); "
+          f"grad_norm first {hist[0]['grad_norm']:.4f}, last {hist[-1]['grad_norm']:.4f} [{smi}]")
+    say(f"  step {med * 1e3:.3f} ms median of {len(times)} (min {min(times) * 1e3:.3f}, max "
+        f"{max(times) * 1e3:.3f}); bound {bound_s * 1e3:.3f} ms ({bound_by}: {ops:.4g} "
+        f"operations, {by:.4g} B), {100 * bound_s / med:.1f}% of it; with remat's recomputed "
+        f"forward counted ({4 / 3 * bound_s * 1e3:.3f} ms) {100 * 4 / 3 * bound_s / med:.1f}%; "
+        f"{tokens / med:.1f} tokens/s (bound {tokens / bound_s:.1f}) [{smi}]")
+    say(f"  max_memory_allocated {peak} B above the {base_mem} B held before; resident state "
+        f"{resident} B ({100 * resident / peak:.1f}% of the peak), {resident + accum} B with the "
+        f"f32 accumulators of M > 1 ({100 * (resident + accum) / peak:.1f}%) [{smi}]")
+    say(f"  checkpoints: " + "; ".join(
+        f"step {s['step']}: {s['bytes']} B, snapshot {s['snapshot_s']:.3f} s (the loop's "
+        f"stall), write {s.get('write_s', float('nan')):.3f} s" for s in saves)
+        + f"; restore " + ", ".join(f"{r:.3f} s" for r in trainer.restore_seconds)
+        + f" [{smi}]")
+
+    state = out["state"]
+    b0 = make_batch(cfg, shape, DataConfig(), 0, card, batch_override=TRAIN_BATCH)
+    mb = TRAIN_BATCH // TRAIN_MICRO
+    with torch.no_grad():
+        again = float(_loss_fn(state["params"], cfg, tcfg,
+                               {k: v[-mb:] for k, v in b0.items()}, 8)[1]["lm_loss"])
+    say(f"  step 0's last microbatch after the run: lm_loss {again:.4f}, against {first:.4f} "
+        f"when step 0 ran it (the step's metrics are its last microbatch's) [{smi}]")
+    step_fn = make_train_step(cfg, tcfg)
+    batch = make_batch(cfg, shape, DataConfig(), TRAIN_STEPS, card, batch_override=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t0
+    busy = _device_busy(prof)
+    if busy is None:
+        say(f"  train-step profile: not measured (torch.profiler recorded no device activity) "
+            f"[{smi}]")
+    else:
+        n_ops, busy_us = busy
+        say(f"  train-step profile (torch.profiler, one more step): {n_ops} device operations, "
+            f"device busy {busy_us / 1e3:.3f} ms = {100 * busy_us / 1e6 / med:.1f}% of the "
+            f"unprofiled median step (device idle {100 - 100 * busy_us / 1e6 / med:.1f}%); "
+            f"profiled step {prof_s * 1e3:.3f} ms [{smi}]")
+        def self_us(e):
+            return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+
+        top = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                     key=lambda e: -self_us(e))[:10]
+        say("  device time by aten operation (self time of the kernels each launched): " + "; ".join(
+            f"{e.key} {self_us(e) / 1e3:.3f} ms x {e.count}" for e in top) + f" [{smi}]")
+    del state, out, trainer, batch, prof
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    cli_dir = tempfile.mkdtemp(prefix="train_cli_", dir=root)
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    args = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "20", "--batch", "8", "--remat", "full",
+            "--ckpt-dir", cli_dir]
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args],
+                           capture_output=True, text=True, env=env, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    check(child.returncode == 0, f"launch.train exited {child.returncode}: "
+          f"{child.stderr.strip()[-2000:]}")
+    lines = child.stdout.strip().splitlines()
+    check(len(lines) == 2 and lines[1].startswith("finished step=20 failures=0"),
+          f"launch.train printed {lines}")
+    say(f"train child: python -m repro_torch.launch.train {' '.join(args[:-2])}: {lines[0]}; "
+        f"{lines[1]}; child wall {cli_wall:.3f} s [{smi}]")
+    return {"step_ms": med * 1e3, "tok_s": tokens / med, "peak_B": peak, "wall_s": wall,
+            "cli_wall_s": cli_wall}
+
+
 def main() -> int:
     import torch
 
@@ -1539,12 +1851,20 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"serve path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
     check(not any(_build.LAUNCHES.values()), "a stencil kernel was launched on the serve path")
+
+    _build.reset_launches()  # the train path starts here
+    train = phase11_train(smi)
+    torch.cuda.synchronize()
+    say(f"train path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
+    check(not any(_build.LAUNCHES.values()), "a stencil kernel was launched on the train path")
     say(f"seconds: sweep {sweep_s:.3f}, measure {measure_s:.2f}, fit {fit_s:.2f}, "
         f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, gateway builds "
         + ", ".join(f"{g} {t:.3f}" for g, t in gateway_build_s.items())
         + ", LM " + ", ".join(f"{k} {v:.3f}" for k, v in lm_s.items())
         + ", serve " + ", ".join(f"({c}) prefill {v['prefill_ms'] / 1e3:.3f} decode/step "
                                  f"{v['decode_ms'] / 1e3:.4f}" for c, v in serve.items())
+        + f", train step {train['step_ms'] / 1e3:.3f} (run {train['wall_s']:.3f}, child "
+          f"{train['cli_wall_s']:.3f})"
         + f", total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -23,6 +23,19 @@ The decode caches carry both ways. The reference's cache tree is
 :func:`caches_from_reference` splits the repeat axis into layers (each
 layer's ``idx`` its own 0-d tensor), :func:`caches_to_reference` stacks it
 back, so caches after a prefill or a decode step compare leaf by leaf.
+
+A whole train state carries both ways too. The reference's train state is
+``{"comp"?, "opt": {"m", "step", "v"}, "params"}`` with ``m``, ``v`` and
+``comp`` trees shaped as ``params``; the port's is ``{"params": Model,
+"opt": {"m": {name: tensor}, "step": 0-d int32, "v": {...}}, "comp"?:
+{...}}`` (:mod:`repro_torch.train.train_step`). :func:`reference_layout`
+lists the reference tree's leaves in the order ``jax.tree_util`` flattens
+it (dict keys sorted, segment slots in order), each with the port names of
+its rows; :func:`train_state_leaves` lists a port train state's leaves in
+the reference's train-state order, which is the order of a checkpoint's
+``leaf_{i:05d}.npy`` files (:mod:`repro_torch.checkpoint`);
+:func:`train_state_to_reference` and :func:`train_state_from_reference`
+carry the values.
 """
 
 from __future__ import annotations
@@ -44,6 +57,10 @@ __all__ = [
     "reference_leaves",
     "caches_from_reference",
     "caches_to_reference",
+    "reference_layout",
+    "train_state_leaves",
+    "train_state_to_reference",
+    "train_state_from_reference",
 ]
 
 _STACKS = ("stack", "encoder", "decoder")
@@ -170,3 +187,108 @@ def caches_to_reference(cfg: ArchConfig, caches: Dict) -> Dict:
     if "enc_out" in caches:
         out["enc_out"] = _to_numpy(caches["enc_out"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Train states
+# ---------------------------------------------------------------------------
+def reference_layout(model: Model) -> List[Tuple[Tuple, List[str], bool]]:
+    """``(path, names, stacked)`` for every leaf of the reference's
+    parameter tree, in ``jax.tree_util``'s flatten order. ``names[r]`` is
+    the port parameter holding row ``r`` of a leaf stacked over a
+    segment's repeats (``stacked``); an unstacked leaf has one name."""
+    slots = {}
+    for stack in _STACKS:
+        if hasattr(model, stack):
+            segs = getattr(model, stack).segs
+            slots[stack] = {
+                layer_index(segs, si, r, j): (si, r, j)
+                for si, (pattern, reps) in enumerate(segs)
+                for r in range(reps) for j in range(len(pattern))
+            }
+    rows: Dict[Tuple, Dict[int, str]] = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in slots:
+            si, r, j = slots[parts[0]][int(parts[2])]
+            rows.setdefault((parts[0], f"seg{si}", j, *parts[3:]), {})[r] = name
+        else:
+            rows[tuple(parts)] = {-1: name}
+    return [(path, [rows[path][r] for r in sorted(rows[path])], path[0] in slots)
+            for path in sorted(rows)]
+
+
+def train_state_leaves(state: Dict) -> List[Tuple[Tuple, List[torch.Tensor], bool]]:
+    """``(path, tensors, stacked)`` for every leaf of the reference's train
+    state, in its flatten order: the port tensors of the leaf's rows
+    (stacked) or its one tensor."""
+    model = state["params"]
+    layout = reference_layout(model)
+
+    def tree(prefix, src):
+        return [(prefix + path, [src[n] for n in names], stacked) for path, names, stacked in layout]
+
+    out = []
+    if "comp" in state:
+        out += tree(("comp",), state["comp"])
+    out += tree(("opt", "m"), state["opt"]["m"])
+    out.append((("opt", "step"), [state["opt"]["step"]], False))
+    out += tree(("opt", "v"), state["opt"]["v"])
+    return out + tree(("params",), dict(model.named_parameters()))
+
+
+def _set_path(tree: Dict, path: Tuple, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _tuples(tree):
+    """Nested dicts whose keys are segment-slot integers as tuples."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _tuples(v) for k, v in tree.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return tuple(out[k] for k in sorted(out))
+    return out
+
+
+def train_state_to_reference(state: Dict) -> Dict:
+    """A port train state as the reference's train-state tree, numpy
+    leaves stacked over each segment's repeats."""
+    tree: Dict = {}
+    for path, tensors, stacked in train_state_leaves(state):
+        arrs = [_to_numpy(t) for t in tensors]
+        _set_path(tree, path, np.stack(arrs) if stacked else arrs[0])
+    return _tuples(tree)
+
+
+def _get_path(tree, path: Tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def train_state_from_reference(cfg: ArchConfig, tree: Dict, device=None) -> Dict:
+    """The reference's train-state tree (numpy leaves) as a port train
+    state on ``device`` (the card unless given), bit for bit."""
+    device = resolve_device(device)
+    model = from_reference_params(cfg, tree["params"], device)
+    layout = reference_layout(model)
+
+    def carry(sub) -> Dict[str, torch.Tensor]:
+        out = {}
+        for path, names, stacked in layout:
+            arr = np.asarray(_get_path(sub, path))
+            for r, name in enumerate(names):
+                out[name] = _to_tensor(arr[r] if stacked else arr).to(device)
+        return out
+
+    state: Dict = {"params": model, "opt": {
+        "m": carry(tree["opt"]["m"]),
+        "step": _to_tensor(np.asarray(tree["opt"]["step"])).to(device),
+        "v": carry(tree["opt"]["v"]),
+    }}
+    if "comp" in tree:
+        state["comp"] = carry(tree["comp"])
+    return state

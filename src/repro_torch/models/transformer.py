@@ -10,16 +10,29 @@ parameters over the repeats and ``lax.scan``s them; here a stack is an
 :func:`stack_apply` walks the layers with the per-layer cache list that
 :func:`repro_torch.serve.kvcache.init_caches` builds.
 
-Rematerialization (the reference's ``remat`` policies) belongs to
-training and is not ported yet: any ``remat`` but ``"none"`` raises.
+Rematerialization: :func:`stack_apply`'s ``remat`` takes the reference's
+five policy names (:data:`REMAT_POLICIES`) and wraps each layer in
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` while autograd
+records: ``"full"`` saves only the layer's input, ``"dots"`` and
+``"dots_no_batch"`` are selective checkpoints that save the outputs of the
+matrix products (``mm``/``addmm``/``bmm``/``baddbmm``; for
+``"dots_no_batch"`` only the 2-D ``mm``/``addmm``, the products without
+batch dimensions) and recompute the rest, and ``"save_block_io"``
+checkpoints the mixer and the FFN sub-layers as two regions, so a block
+keeps its sub-layer boundaries (the reference's ``mixer_out`` and
+``ffn_out``) and recomputes what lies inside them. Remat changes memory,
+never values. The reference maps an unknown name to full remat; here an
+unknown name raises ``ValueError``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ArchConfig
 from .attention import attention, attn_init
@@ -36,7 +49,19 @@ __all__ = [
     "stack_apply",
     "Block",
     "Stack",
+    "REMAT_POLICIES",
 ]
+
+_aten = torch.ops.aten
+#: the reference's remat policy names -> the operations whose outputs a
+#: layer's checkpoint saves (None: the layer is not checkpointed)
+REMAT_POLICIES = {
+    "none": None,
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+    "full": (),  # the layer's input only
+    "save_block_io": None,  # block_apply checkpoints each sub-layer instead
+}
 
 Segments = List[Tuple[Tuple[Tuple[str, str], ...], int]]
 
@@ -125,6 +150,27 @@ def stack_init(init: Init, cfg: ArchConfig, dtype, *, cross: bool = False,
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
+def _mixer_sublayer(params: Block, cfg, mixer, x, positions, mode, cache, impl):
+    h = rmsnorm(params.norm1, x, cfg.rms_offset)
+    if mixer == "attn":
+        return attention(params.mixer, cfg, h, positions=positions, mode=mode, cache=cache,
+                         impl=impl)
+    return ssm_apply(params.mixer, cfg, h, cache=cache)
+
+
+def _cross_sublayer(params: Block, cfg, x, positions, cache, enc_out, impl):
+    h = rmsnorm(params.norm_cross, x, cfg.rms_offset)
+    return attention(params.cross, cfg, h, positions=positions, mode="cross", cache=cache,
+                     kv_source=enc_out, impl=impl)
+
+
+def _ffn_sublayer(params: Block, cfg, ffn, x):
+    h = rmsnorm(params.norm2, x, cfg.rms_offset)
+    if ffn == "moe":
+        return moe_apply(params.ffn, cfg, h)
+    return mlp(params.ffn, h, cfg.act), None
+
+
 def block_apply(
     params: Block,
     cfg: ArchConfig,
@@ -138,34 +184,29 @@ def block_apply(
     enc_out: Optional[torch.Tensor],
     impl: str,
     cross: bool = False,
+    remat_sublayers: bool = False,
 ):
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, aux_loss). ``remat_sublayers`` checkpoints
+    each sub-layer (remat ``"save_block_io"``)."""
+    run = (lambda f, *a: checkpoint(f, *a, use_reentrant=False)) if remat_sublayers \
+        else (lambda f, *a: f(*a))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict = {}
-    h = rmsnorm(params.norm1, x, cfg.rms_offset)
-    mixer_cache = cache.get("mixer") if cache else None
-    if mixer == "attn":
-        h, c = attention(params.mixer, cfg, h, positions=positions, mode=mode,
-                         cache=mixer_cache, impl=impl)
-    else:
-        h, c = ssm_apply(params.mixer, cfg, h, cache=mixer_cache)
+    h, c = run(_mixer_sublayer, params, cfg, mixer, x, positions, mode,
+               cache.get("mixer") if cache else None, impl)
     if c is not None:
         new_cache["mixer"] = c
     x = x + h
     if cross:
-        h = rmsnorm(params.norm_cross, x, cfg.rms_offset)
-        cross_cache = cache.get("cross") if cache else None
-        h, c = attention(params.cross, cfg, h, positions=positions, mode="cross",
-                         cache=cross_cache, kv_source=enc_out, impl=impl)
+        h, c = run(_cross_sublayer, params, cfg, x, positions,
+                   cache.get("cross") if cache else None, enc_out, impl)
         if c is not None:
             new_cache["cross"] = c
         x = x + h
     if ffn != "none":
-        h = rmsnorm(params.norm2, x, cfg.rms_offset)
-        if ffn == "moe":
-            h, aux = moe_apply(params.ffn, cfg, h)
-        else:
-            h = mlp(params.ffn, h, cfg.act)
+        h, moe_aux = run(_ffn_sublayer, params, cfg, ffn, x)
+        if moe_aux is not None:
+            aux = moe_aux
         x = x + h
     return x, (new_cache or None), aux
 
@@ -189,21 +230,28 @@ def stack_apply(
     stack's execution order (``init_caches(...)["stack"]``); the layers
     update them in place and ``new_caches`` lists the same dicts.
     """
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: rematerialization comes with training "
-            "(ROADMAP Queue 1 item 2); the port's forward runs remat='none'"
-        )
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r} (want one of {sorted(REMAT_POLICIES)})")
+    # checkpoint only while autograd records: without a backward pass a
+    # checkpoint would save nothing and only cost its bookkeeping
+    saved = REMAT_POLICIES[remat]
+    wrap = saved is not None and torch.is_grad_enabled()
+    ckpt_kw = {"use_reentrant": False}
+    if saved:
+        ckpt_kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, list(saved))
+    sublayers = remat == "save_block_io" and torch.is_grad_enabled()
     if caches is not None and len(caches) != len(params.layers):
         raise ValueError(f"{len(caches)} layer caches for {len(params.layers)} layers")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = [] if caches is not None else None
     for i, layer in enumerate(params.layers):
-        x, c_out, aux = block_apply(
-            layer, cfg, *layer.kind, x, positions=positions, mode=mode,
-            cache=caches[i] if caches is not None else None,
-            enc_out=enc_out, impl=impl, cross=cross,
-        )
+        kw = dict(positions=positions, mode=mode,
+                  cache=caches[i] if caches is not None else None,
+                  enc_out=enc_out, impl=impl, cross=cross, remat_sublayers=sublayers)
+        if wrap:
+            x, c_out, aux = checkpoint(block_apply, layer, cfg, *layer.kind, x, **ckpt_kw, **kw)
+        else:
+            x, c_out, aux = block_apply(layer, cfg, *layer.kind, x, **kw)
         aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(c_out)

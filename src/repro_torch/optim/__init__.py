@@ -1,0 +1,10 @@
+"""Optimizer substrate: AdamW + schedules + gradient compression."""
+
+from .adamw import AdamWConfig, adamw_init, adamw_update, global_norm, lr_at  # noqa: F401
+from .compression import (  # noqa: F401
+    CompressionState,
+    compress_grads,
+    compression_init,
+    dequantize_int8,
+    quantize_int8,
+)

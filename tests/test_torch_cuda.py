@@ -358,3 +358,85 @@ def test_forward_builds_no_tensor_off_the_card(card):
             generate(model, cfg, batch, 3)
         assert seen.devices == {"cuda"}, (name, seen.devices)
         assert not seen.syncs, (name, seen.syncs)
+
+
+def _state_to(state, device):
+    """A copy of a train state on ``device``."""
+    import copy
+
+    out = {"params": copy.deepcopy(state["params"]).to(device),
+           "opt": {"m": {k: v.to(device, copy=True) for k, v in state["opt"]["m"].items()},
+                   "v": {k: v.to(device, copy=True) for k, v in state["opt"]["v"].items()},
+                   "step": state["opt"]["step"].to(device, copy=True)}}
+    if "comp" in state:
+        out["comp"] = {k: v.to(device, copy=True) for k, v in state["comp"].items()}
+    return out
+
+
+@pytest.mark.parametrize("name,compress", [("internlm2-1.8b", False), ("mixtral-8x22b", False),
+                                           ("deepseek-v3-671b", True)])
+def test_reduced_train_step_on_the_card_equals_the_cpu(card, name, compress):
+    """One train step (remat "dots", two microbatches) from one seeded
+    state on the CPU and on the card, f32 without TF32: the metrics within
+    1e-5 relative, the gradients (``m`` after the first step is
+    (1 - b1) x the clipped gradient) within 1e-4 of the largest entry of
+    each reference leaf (a segment's layers, which share one int8 scale),
+    or one int8 bin (1/127 of it) where compression met a near tie."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.models.convert import reference_layout
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = _ample(get_arch(name).reduced())
+    tcfg = TrainConfig(microbatches=2, remat="dots", compress_grads=compress)
+    cpu_state = init_train_state(cfg, tcfg, device="cpu")
+    card_state = _state_to(cpu_state, card)
+    batch = make_batch(cfg, ShapeSpec("tiny", 32, 4, "train"), DataConfig(), 0, "cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, want = make_train_step(cfg, tcfg, device="cpu")(cpu_state, batch)
+        _, got = make_train_step(cfg, tcfg)(card_state, {k: v.to(card) for k, v in batch.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert set(got) == set(want) and all(v.is_cuda for v in got.values())
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5, atol=1e-7)
+    slack = 1 / 127 + 1e-4 if compress else 1e-4
+    m_cpu, m_card = cpu_state["opt"]["m"], card_state["opt"]["m"]
+    for path, names, _ in reference_layout(cpu_state["params"]):
+        err = max(float((m_card[k].cpu() - m_cpu[k]).abs().max()) for k in names)
+        assert err <= slack * max(float(m_cpu[k].abs().max()) for k in names) + 1e-12, path
+
+
+def test_bf16_checkpoint_roundtrip_on_the_card(card, tmp_path):
+    """A bf16 train state on the card after one step: the async snapshot,
+    then in-place updates, then a restore into the same tensors gives the
+    snapshot's bits back."""
+    import dataclasses
+
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_arch("llama3-8b").reduced(), dtype="bfloat16")
+    tcfg = TrainConfig(remat="full")
+    state = init_train_state(cfg, tcfg)
+    step = make_train_step(cfg, tcfg)
+    state, _ = step(state, make_batch(cfg, ShapeSpec("tiny", 32, 4, "train"), DataConfig(), 0))
+    assert state["params"].embed.dtype == torch.bfloat16 and state["params"].embed.is_cuda
+    want = [t.detach().clone() for t in state["params"].parameters()]
+    want_m = {k: v.clone() for k, v in state["opt"]["m"].items()}
+    ck = AsyncCheckpointer(str(tmp_path), keep=1)
+    ck.save(1, state, {"next_step": 1})
+    state, _ = step(state, make_batch(cfg, ShapeSpec("tiny", 32, 4, "train"), DataConfig(), 1))
+    ck.wait()
+    restored, at, extra = restore_checkpoint(str(tmp_path), state)
+    assert restored is state and at == 1 and extra == {"next_step": 1}
+    assert int(state["opt"]["step"]) == 1
+    for p, w in zip(state["params"].parameters(), want):
+        assert p.is_cuda and torch.equal(p.view(torch.int16), w.view(torch.int16))
+    assert all(torch.equal(state["opt"]["m"][k], v) for k, v in want_m.items())

@@ -6,8 +6,8 @@ package's, for all ten registered architectures reduced (the reference's
 frontend embeddings.
 
 Logits (and DeepSeek's MTP logits and the MoE aux loss) within f32
-rtol = atol = 1e-4. Also: the ``remat`` refusal (training is not ported),
-a forward refuses tokens that do not lie on the model's device, and the
+rtol = atol = 1e-4. Also: every ``remat`` name gives the same logits and
+an unknown one is refused, a forward refuses tokens that do not lie on the model's device, and the
 stack refuses a cache list of the wrong length.
 """
 
@@ -96,10 +96,17 @@ def test_module_forwards_are_the_apply_functions():
 
 
 def test_remat_other_than_none_is_refused():
+    """The reference's five remat names run (they change memory, never
+    values: ``tests/test_torch_train_step.py``); any other name is refused
+    (the reference would take it for full remat)."""
     cfg, _, _, model = _carried("llama3-8b")
     batch = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
-    for remat in ("dots", "full", "save_block_io"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    want, _, _ = forward(model, cfg, batch)
+    for remat in ("dots", "dots_no_batch", "full", "save_block_io"):
+        got, _, _ = forward(model, cfg, batch, remat=remat)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    for remat in ("everything", "dot", ""):
+        with pytest.raises(ValueError, match="unknown remat policy"):
             forward(model, cfg, batch, remat=remat)
 
 
