@@ -98,13 +98,40 @@ the sweep again on the calibrated machine. Phases:
    ``torch.profiler`` count of one step's device operations and busy
    share; (c) ``python -m repro_torch.launch.train --arch internlm2-1.8b
    --reduced --steps 20`` as a child (train_4k's sequence, the batch cut
-   to 8, remat full). No kernel lies on this path either.
+   to 8, remat full). No kernel lies on this path either;
+12. multi-device (one card, so one rank): (a) the sharded sweep at full
+   width, ``sweep_cells_sharded`` with ``devices=1`` and with
+   ``devices=["cuda:0"] * 4`` (four shards on the one card) over every
+   stencil group, then ``codesign(engine="sharded", devices=1)``, each bit
+   for bit phase 3's matrix with its best point; (b) one NCCL rank in
+   process (``tcp://localhost`` on a free port) and a 1 x 1
+   ``DeviceMesh("cuda", ("data", "model"))``: ``compressed_psum`` equal to
+   quantize -> dequantize, and one train step of each of phase 11 (a)'s
+   six reduced archs on the mesh against the single-device card step (f32,
+   no TF32: metrics and every state leaf within 1e-6); (c) InternLM2-1.8B
+   at full width on that mesh from phase 11's seeded state (bf16, 8 x
+   4096 tokens, M = 4, remat full), 2 steps whose ``lm_loss`` must equal
+   phase 11's first two (the largest difference printed), ms per step
+   beside phase 11's and its bound, peak memory; (d) Llama-3-8B served on
+   the mesh at phase 10 (a)'s shape, its tokens equal to phase 10's and
+   decode ms per step beside phase 10's; (e) the sharded code paths on the
+   one rank: the partition rules place every tensor with ``Shard`` kept on
+   the size-1 axes (``to_placements`` patched here, and only here), so the
+   DTensor rules, ``local_map`` wraps, vocab-parallel lookup and loss and
+   redistributions a wider mesh runs all run; one fsdp train step of each
+   of the six reduced archs against the single-device card step (metrics
+   within 1e-5 relative, the state within rtol 2e-4 / atol 2e-5 but for
+   at most 0.1% of its elements, each within a first step's AdamW move of
+   2 lr), and Llama-3-8B and Mixtral (reduced) served against the
+   single-device serve (tokens identical, logits within 1e-4). The
+   process group is destroyed at the end of the phase. No kernel lies on
+   this path either.
 
 The launch counters are set to 0 just before phase 3 and read just after
 phase 5, and again just before and after phase 7: every kernel must have
 been launched on the main path, and K1/K2 on the served path; they are
 set to 0 before phase 9 and must read 0 after it, and again around phases
-10 and 11. A failed
+10, 11 and 12. A failed
 check raises; nothing is caught. The last three lines are a JSON object of
 per-kernel numbers (launches: main path plus served path), the card's name
 and power limit as ``nvidia-smi`` gives them, and the device record.
@@ -1498,7 +1525,8 @@ def phase10_serve(smi):
                 f"{100 * busy_us / 1e3 / (dec * 1e3):.1f}% of the unprofiled median step "
                 f"(device idle {100 - 100 * busy_us / 1e3 / (dec * 1e3):.1f}%)")
         results[label] = {"prefill_ms": r["prefill_s"] * 1e3, "decode_ms": dec * 1e3,
-                          "tok_s": tps, "peak_B": peak, "agree": agree}
+                          "tok_s": tps, "peak_B": peak, "agree": agree,
+                          "tokens": r["tokens"].cpu()}
         del r, ref, seq
     del model
     torch.cuda.empty_cache()
@@ -1790,7 +1818,264 @@ def phase11_train(smi):
     say(f"train child: python -m repro_torch.launch.train {' '.join(args[:-2])}: {lines[0]}; "
         f"{lines[1]}; child wall {cli_wall:.3f} s [{smi}]")
     return {"step_ms": med * 1e3, "tok_s": tokens / med, "peak_B": peak, "wall_s": wall,
-            "cli_wall_s": cli_wall}
+            "cli_wall_s": cli_wall, "first_losses": [m["lm_loss"] for m in hist[:2]]}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _state_beyond(on_mesh, single, lr, rtol=2e-4, atol=2e-5):
+    """(elements of ``on_mesh``'s state beyond rtol/atol of ``single``'s,
+    elements in all, the largest excess of a parameter's move over a first
+    AdamW step's 2 lr (1 + 0.1 |p|), the largest relative error of any
+    other leaf beyond the tolerance)."""
+    from repro_torch.models.convert import train_state_leaves
+    from repro_torch.sharding.dtensor import full
+
+    beyond = total = 0
+    move = other = 0.0
+    for (path, a, _), (_, b, _) in zip(train_state_leaves(on_mesh), train_state_leaves(single)):
+        for ta, tb in zip(a, b):
+            ta, tb = full(ta).detach().float(), tb.detach().float()
+            err = (ta - tb).abs()
+            out = err > atol + rtol * tb.abs()
+            beyond, total = beyond + int(out.sum()), total + tb.numel()
+            if not bool(out.any()):
+                continue
+            if path[0] == "params":
+                move = max(move, float((err - 2 * lr * (1 + 0.1 * tb.abs()))[out].max()))
+            else:
+                other = max(other, float((err / tb.abs().clamp(min=1e-30))[out].max()))
+    return beyond, total, move, other
+
+
+def _phase12_sharded_paths(mesh, smi):
+    """Phase 12 (e): train steps and serving on the one-rank mesh with
+    ``Shard`` kept on its size-1 axes, against one device of the mesh's
+    type."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import Model
+    from repro_torch.serve import generate_timed
+    from repro_torch.sharding import dtensor, partition
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    def keep_shards(spec, m):  # as if every axis were 2 wide: size-1 axes shard too
+        return partition.to_placements(spec, MeshShape(m.mesh_dim_names, (2,) * m.ndim))
+
+    tiny = ShapeSpec("tiny", 32, 4, "train")
+    dev = torch.device(mesh.device_type)
+    dtensor.to_placements = keep_shards
+    try:
+        for name in PARITY_ARCHS:
+            cfg = _moe_ample(get_arch(name).reduced())
+            tcfg = TrainConfig(microbatches=2, remat="dots", fsdp=True)
+            single = init_train_state(cfg, tcfg, device=dev)
+            on_mesh = init_train_state(cfg, tcfg, mesh)
+            params = list(on_mesh["params"].parameters())
+            n_shard = sum(any(isinstance(p, Shard) for p in t.placements) for t in params
+                          if isinstance(t, DTensor))
+            check(n_shard > 0, f"{name}: no parameter is sharded on the size-1 axes")
+            batch = make_batch(cfg, tiny, DataConfig(), 0, dev)
+            _, want = make_train_step(cfg, tcfg, dev)(single, batch)
+            _, got = make_train_step(cfg, tcfg, mesh)(on_mesh, batch)
+            m_err = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+                        for k in want)
+            beyond, total, move, other = _state_beyond(on_mesh, single, float(want["lr"]))
+            say(f"  sharded step {name} (reduced, f32, fsdp, 2 microbatches, {n_shard} of "
+                f"{len(params)} parameters sharded): loss {float(got['loss']):.6f} vs "
+                f"single-device {float(want['loss']):.6f}; metrics max relative err "
+                f"{m_err:.3g}; {beyond} of {total} state elements beyond rtol 2e-4 / atol "
+                f"2e-5 (params: largest excess over 2 lr {move:.3g}; other leaves: largest "
+                f"relative err {other:.3g}) [{smi}]")
+            check(m_err <= 1e-5, f"{name}: sharded step metrics, max relative err {m_err}")
+            check(beyond <= 1e-3 * total and move <= 2e-5 and other == 0.0,
+                  f"{name}: sharded step state: {beyond} of {total} beyond, excess {move}, "
+                  f"other {other}")
+            del single, on_mesh
+        for name in ("llama3-8b", "mixtral-8x22b"):
+            cfg = _moe_ample(get_arch(name).reduced())
+            batch = prompt_batch(cfg, 2, 12, 0, dev)
+            want = generate_timed(Model(cfg, device=dev), cfg, batch, 4, device=dev)
+            got = generate_timed(Model(cfg, device=dev), cfg, batch, 4, mesh=mesh)
+            same = torch.equal(got["tokens"], want["tokens"])
+            l_err = max(float((g - w).abs().max()) for g, w in
+                        zip([got["prefill_logits"], *got["logits"]],
+                            [want["prefill_logits"], *want["logits"]]))
+            say(f"  sharded serve {name} (reduced, f32, 2 x 12 prompt + 3 decode steps): "
+                f"tokens {'identical to' if same else 'differ from'} the single-device "
+                f"serve's; logits max |err| {l_err:.3g} [{smi}]")
+            check(same and l_err <= 1e-4, f"{name}: sharded serve differs from one device")
+    finally:
+        dtensor.to_placements = partition.to_placements
+
+
+def phase12_multi_device(smi, analytic, sweep_s, serve, train):
+    """The multi-device half of the port on the one card: the sharded
+    sweep, then one NCCL rank on a 1 x 1 mesh (see the module docstring)."""
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.codesign import _stencil_groups, codesign
+    from repro_torch.core.sweep import clear_caches, sweep_cells_sharded
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import prompt_batch
+    from repro_torch.models import Model
+    from repro_torch.models.convert import train_state_leaves
+    from repro_torch.optim import AdamWConfig, compressed_psum, dequantize_int8, quantize_int8
+    from repro_torch.serve import generate_timed
+    from repro_torch.sharding.dtensor import full
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    say("== phase 12: multi-device on one card (one rank)")
+    wl, hw = analytic.workload, analytic.hw
+    groups = _stencil_groups(wl).values()
+    for devices in (1, ["cuda:0"] * 4):
+        clear_caches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for st, cis, sizes in groups:
+            t, i = sweep_cells_sharded(st, analytic.gpu, sizes, hw.n_sm, hw.n_v, hw.m_sm,
+                                       analytic.lattices[cis[0]], devices=devices)
+            check(np.array_equal(t, analytic.cell_time[cis])
+                  and np.array_equal(i, analytic.cell_tile_idx[cis]),
+                  f"sharded sweep devices={devices}: {st.name} differs from phase 3")
+        dt = time.perf_counter() - t0
+        say(f"sharded sweep devices={devices}: {len(hw)} hardware points x {len(wl.cells)} cells "
+            f"in {dt:.3f} s (first call after clear_caches), bit for bit phase 3's matrix "
+            f"(phase 3's torch engine: {sweep_s:.3f} s, first call) [{smi}]")
+    t0 = time.perf_counter()
+    res = codesign(wl, hw=hw, engine="sharded", devices=1)
+    dt = time.perf_counter() - t0
+    check(np.array_equal(res.cell_time, analytic.cell_time)
+          and np.array_equal(res.cell_tile_idx, analytic.cell_tile_idx),
+          "codesign(engine='sharded', devices=1) differs from phase 3")
+    check(res.best() == analytic.best(), "the sharded best point is phase 3's")
+    i, g = res.best()
+    say(f"codesign(engine='sharded', devices=1): {dt:.3f} s; best point {i} ({g:.1f} GFLOP/s "
+        f"predicted) = phase 3's [{smi}]")
+
+    torch.cuda.set_device(0)
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        say(f"NCCL process group (1 rank, tcp://localhost:{port}); mesh {mesh}")
+        x = torch.randn(4096, 1024, generator=torch.Generator(device="cuda").manual_seed(5),
+                        device="cuda") * 3.0
+        got = compressed_psum(x, mesh.get_group("data"))
+        want = dequantize_int8(*quantize_int8(x))
+        check(torch.equal(got, want), "compressed_psum on one rank = quantize -> dequantize")
+        say(f"compressed_psum over the data dim's NCCL group: 4096 x 1024 f32 equal bit for bit "
+            f"to quantize -> dequantize (max |x| {float(x.abs().max()):.4f}) [{smi}]")
+
+        tiny = ShapeSpec("tiny", 32, 4, "train")
+        worst = {"metric": 0.0, "state": 0.0}
+        for name in PARITY_ARCHS:
+            cfg = _moe_ample(get_arch(name).reduced())
+            compress = name == TRAIN_COMPRESS_ARCH
+            tcfg = TrainConfig(microbatches=2, remat="dots", compress_grads=compress)
+            single = init_train_state(cfg, tcfg, device="cuda")
+            on_mesh = init_train_state(cfg, tcfg, mesh)
+            batch = make_batch(cfg, tiny, DataConfig(), 0, "cuda")
+            _, want = make_train_step(cfg, tcfg, "cuda")(single, batch)
+            t0 = time.perf_counter()
+            _, got = make_train_step(cfg, tcfg, mesh)(on_mesh, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            check(set(got) == set(want), f"{name}: the mesh step's metrics are the device's")
+            m_err = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+                        for k in want)
+            s_err = 0.0
+            for (path, a, _), (_, b, _) in zip(train_state_leaves(on_mesh),
+                                               train_state_leaves(single)):
+                for ta, tb in zip(a, b):
+                    ta, tb = full(ta).detach().float(), tb.detach().float()
+                    scale = max(float(tb.abs().max()), 1e-30)
+                    s_err = max(s_err, float((ta - tb).abs().max()) / scale)
+            check(m_err <= 1e-6, f"{name}: mesh step metrics, max relative err {m_err}")
+            check(s_err <= 1e-6, f"{name}: mesh step state, max |err| / max |leaf| {s_err}")
+            worst = {"metric": max(worst["metric"], m_err), "state": max(worst["state"], s_err)}
+            say(f"  mesh step {name} (reduced, f32, remat dots, 2 microbatches"
+                f"{', int8 compression' if compress else ''}): loss {float(got['loss']):.6f} = "
+                f"single-device {float(want['loss']):.6f}; metrics max relative err {m_err:.3g}; "
+                f"state max |err| / max |leaf| {s_err:.3g}; mesh step {step_s * 1e3:.1f} ms "
+                f"(first call) [{smi}]")
+            del single, on_mesh
+        say(f"  mesh steps, all six: metrics max relative err {worst['metric']:.3g}, state "
+            f"{worst['state']:.3g} [{smi}]")
+
+        cfg = get_arch(TRAIN_ARCH)
+        shape = SHAPES["train_4k"]
+        tcfg = TrainConfig(microbatches=TRAIN_MICRO, remat="full",
+                           opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, tcfg, mesh)
+        step_fn = make_train_step(cfg, tcfg, mesh)
+        losses, times = [], []
+        for step in range(2):
+            batch = make_batch(cfg, shape, DataConfig(), step, batch_override=TRAIN_BATCH, mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["lm_loss"]))
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        del state, batch
+        torch.cuda.empty_cache()
+        diff = max(abs(a - b) for a, b in zip(losses, train["first_losses"]))
+        bound_s = _train_bound(cfg, TRAIN_BATCH, shape.seq_len)[0]
+        say(f"mesh train: {cfg.name} {cfg.dtype} at full width on the 1 x 1 mesh, "
+            f"{TRAIN_BATCH} x {shape.seq_len} tokens in {TRAIN_MICRO} microbatches, remat full: "
+            f"lm_loss {losses} vs phase 11's first two {train['first_losses']} (max |diff| "
+            f"{diff:.3g}{', bit for bit' if diff == 0 else ''}); step ms {times[0] * 1e3:.3f} "
+            f"(first), {times[1] * 1e3:.3f} (second) against phase 11's median "
+            f"{train['step_ms']:.3f}; second step {100 * bound_s / times[1]:.1f}% of the "
+            f"{bound_s * 1e3:.3f} ms bound; max_memory_allocated {peak} B above the {base_mem} B "
+            f"held before [{smi}]")
+        check(all(np.isfinite(losses)), "mesh train: finite losses")
+        check(diff <= 1e-6, f"mesh train lm_loss {losses} vs phase 11's {train['first_losses']}")
+
+        cfg = get_arch("llama3-8b")
+        label, b, s, steps = SERVE_CASES[0]
+        model = Model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        batch = prompt_batch(cfg, b, s, 0, torch.device("cuda"))
+        generate_timed(model, cfg, batch, steps, mesh=mesh)  # cold: places the model
+        r = generate_timed(model, cfg, batch, steps, mesh=mesh)
+        dec = statistics.median(r["decode_s"])
+        want = serve[label]["tokens"]
+        same = torch.equal(r["tokens"].cpu(), want)
+        say(f"mesh serve: llama3-8b bf16 on the 1 x 1 mesh, {b} x {s} prompt + {steps - 1} "
+            f"decode steps (warm run): prefill {r['prefill_s'] * 1e3:.3f} ms, decode "
+            f"{dec * 1e3:.3f} ms/step against phase 10 (a)'s {serve[label]['decode_ms']:.3f}; "
+            f"tokens {'identical to' if same else 'differ from'} phase 10's [{smi}]")
+        check(same, "mesh serve tokens = phase 10 (a)'s")
+        del model, r
+        torch.cuda.empty_cache()
+        _phase12_sharded_paths(mesh, smi)
+    finally:
+        dist.destroy_process_group()
+    return {"sweep_sharded_s": dt, "train_ms": times[1] * 1e3, "decode_ms": dec * 1e3}
 
 
 def main() -> int:
@@ -1857,6 +2142,13 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"train path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
     check(not any(_build.LAUNCHES.values()), "a stencil kernel was launched on the train path")
+
+    _build.reset_launches()  # the multi-device path starts here
+    multi = phase12_multi_device(smi, analytic, sweep_s, serve, train)
+    torch.cuda.synchronize()
+    say(f"multi-device path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
+    check(not any(_build.LAUNCHES.values()),
+          "a stencil kernel was launched on the multi-device path")
     say(f"seconds: sweep {sweep_s:.3f}, measure {measure_s:.2f}, fit {fit_s:.2f}, "
         f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, gateway builds "
         + ", ".join(f"{g} {t:.3f}" for g, t in gateway_build_s.items())
@@ -1865,6 +2157,8 @@ def main() -> int:
                                  f"{v['decode_ms'] / 1e3:.4f}" for c, v in serve.items())
         + f", train step {train['step_ms'] / 1e3:.3f} (run {train['wall_s']:.3f}, child "
           f"{train['cli_wall_s']:.3f})"
+        + f", mesh: sharded codesign {multi['sweep_sharded_s']:.3f}, train step "
+          f"{multi['train_ms'] / 1e3:.3f}, decode/step {multi['decode_ms'] / 1e3:.4f}"
         + f", total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

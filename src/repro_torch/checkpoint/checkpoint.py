@@ -24,7 +24,13 @@ restores in the other.
   can.) No ``ml_dtypes`` is needed;
 * **async**: :class:`AsyncCheckpointer` snapshots to host memory
   synchronously and does the disk I/O on a background thread;
-* **self-pruning**: keeps the last ``keep`` checkpoints.
+* **self-pruning**: keeps the last ``keep`` checkpoints;
+* **mesh-agnostic**: a DTensor leaf is written as its full logical value
+  (``full_tensor()``, a collective every rank joins; rank 0 alone writes
+  the files, and waiting for a save ends in a barrier), and restored by
+  every rank reading the full leaf and keeping the shards of the target's
+  own placements, so a state saved on one mesh shape restores onto
+  another. The bytes on disk do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..models.convert import train_state_leaves, tree_leaves
 
@@ -86,6 +93,9 @@ def _to_host(values: List[Any], stacked: bool) -> _HostLeaf:
     if not isinstance(first, torch.Tensor):  # a numpy array or scalar
         arr = np.array(first)
         return _HostLeaf(arr, str(arr.dtype))
+    if isinstance(first, DTensor):  # the full logical value (a collective)
+        values = [t.full_tensor() for t in values]
+        first = values[0]
     dtype = _dtype_name(first)
     bits = torch.int16 if first.dtype == torch.bfloat16 else first.dtype
     shape = ((len(values),) if stacked else ()) + tuple(first.shape)
@@ -141,9 +151,31 @@ def _snapshot(tree: Any) -> List[Tuple[Tuple, _HostLeaf]]:
     return [(path, _to_host(values, stacked)) for path, values, stacked in _flatten(tree)]
 
 
+def _distributed(tree: Any) -> bool:
+    return any(isinstance(v, DTensor) for _, values, _ in _flatten(tree) for v in values[:1])
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoint files: rank 0, or a process
+    without a process group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(directory: str, step: int, tree: Any, extra: Optional[Dict] = None) -> str:
-    """Write atomically; returns the final path."""
-    return _save_host(directory, step, _snapshot(tree), extra)
+    """Write atomically; returns the final path. A tree of DTensors is
+    snapshotted by every rank, written by rank 0, and every rank returns
+    after the files are in place."""
+    host = _snapshot(tree)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if _writer():
+        final = _save_host(directory, step, host, extra)
+    if _distributed(tree):
+        import torch.distributed as dist
+
+        dist.barrier()
+    return final
 
 
 def _steps(directory: str) -> List[int]:
@@ -208,7 +240,12 @@ def restore_checkpoint(
                     raise ValueError(f"{'/'.join(map(str, where))}: checkpoint leaf of shape "
                                      f"{tuple(value.shape)} does not fit the target")
                 for t, r in zip(values, rows):
-                    t.copy_(r)
+                    if isinstance(t, DTensor):  # keep this rank's shards
+                        r = distribute_tensor(r.to(t.device), t.device_mesh, t.placements,
+                                              src_data_rank=None)
+                        t.to_local().copy_(r.to_local())
+                    else:
+                        t.copy_(r)
         return target, step, extra
     if device is not None:
         loaded = [t.to(device) for t in loaded]
@@ -246,11 +283,19 @@ class AsyncCheckpointer:
         self.saves: List[Dict[str, float]] = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False
 
     def wait(self) -> None:
+        """Wait for the write in flight; after a DTensor save every rank
+        waits until rank 0's files are in place."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -259,6 +304,9 @@ class AsyncCheckpointer:
         self.wait()  # one in-flight write at a time
         t0 = time.perf_counter()
         host = _snapshot(tree)  # device -> host, complete on return
+        self._barrier = _distributed(tree)
+        if not _writer():
+            return
         record = {"step": step, "bytes": sum(leaf.array.nbytes for _, leaf in host),
                   "snapshot_s": time.perf_counter() - t0}
         self.saves.append(record)

@@ -27,7 +27,14 @@ from .solver import (  # noqa: F401
     refine_point,
     solve_cell,
 )
-from .sweep import refine_points, sweep_cell, sweep_cells  # noqa: F401
+from .sweep import (  # noqa: F401
+    clear_caches,
+    device_count,
+    refine_points,
+    sweep_cell,
+    sweep_cells,
+    sweep_cells_sharded,
+)
 from .timemodel import (  # noqa: F401
     GPUS_BY_NAME,
     MAXWELL_GPU,

@@ -6,18 +6,22 @@ kept as a ``(cells x hardware)`` matrix, so re-weighting frequencies or
 picking one stencil (§V.B "workload sensitivity for free") are matrix
 re-reductions with no new solve.
 
-The inner solves run on one of two engines:
+The inner solves run on one of three engines:
 
 * ``"torch"`` -- :func:`repro_torch.core.sweep.sweep_cells`, one
   broadcast sweep per stencil over all its problem sizes, on the card
   unless ``device="cpu"`` is passed;
+* ``"sharded"`` -- :func:`repro_torch.core.sweep.sweep_cells_sharded`,
+  the same sweep with the hardware axis split over ``devices=``
+  (bit-identical to ``"torch"``);
 * ``"numpy"`` -- the float64 oracle :func:`repro_torch.core.solver
   .solve_cell`.
 
 ``engine="auto"`` keeps the JAX package's rule: numpy below
-:data:`_AUTO_MIN_HW` hardware points, the torch engine otherwise. It never
-chooses numpy or the CPU because no card was found: the torch engine then
-raises. LM op-graph workloads dispatch to :mod:`repro_torch.core.lmcells`
+:data:`_AUTO_MIN_HW` hardware points, else sharded when more than one card
+is attached, else the torch engine; ``devices=`` promotes ``"auto"`` to
+``"sharded"`` and the other engines refuse it. It never chooses numpy or
+the CPU because no card was found: the torch engine then raises. LM op-graph workloads dispatch to :mod:`repro_torch.core.lmcells`
 under the same engine rule.
 """
 
@@ -357,11 +361,30 @@ class CodesignResult:
 _AUTO_MIN_HW = 64
 
 
-def _resolve_engine(engine: str, n_hw: int) -> str:
-    if engine not in ("auto", "torch", "numpy"):
-        raise ValueError(f"unknown engine {engine!r} (want auto|torch|numpy)")
+def _devices_engine(engine: str, devices) -> str:
+    """An explicit device selection is a request for the sharded engine:
+    promote auto (even below the numpy floor -- the caller knows their
+    devices) and reject engines that would silently drop the knob."""
+    if devices is None or engine == "sharded":
+        return engine
     if engine == "auto":
-        return "numpy" if n_hw < _AUTO_MIN_HW else "torch"
+        return "sharded"
+    raise ValueError(
+        f"devices= only applies to engine='sharded' (or 'auto'); "
+        f"engine={engine!r} would silently ignore it"
+    )
+
+
+def _resolve_engine(engine: str, n_hw: int, devices=None) -> str:
+    if engine not in ("auto", "torch", "sharded", "numpy"):
+        raise ValueError(f"unknown engine {engine!r} (want auto|torch|sharded|numpy)")
+    engine = _devices_engine(engine, devices)
+    if engine == "auto":
+        if n_hw < _AUTO_MIN_HW:
+            return "numpy"
+        from . import sweep
+
+        return "sharded" if sweep.device_count() > 1 else "torch"
     return engine
 
 
@@ -376,14 +399,20 @@ def codesign(
     chunk: Optional[int] = None,
     engine: str = "auto",
     device=None,
+    devices=None,
 ) -> CodesignResult:
     """Solve eq. (18): for every feasible hardware point, the optimal tile
     sizes (and time) of every workload cell.
 
     ``engine`` is ``"torch"`` (broadcast sweep on ``device``; the card
-    unless ``device="cpu"``), ``"numpy"`` (float64 oracle) or ``"auto"``
-    (numpy below :data:`_AUTO_MIN_HW` points, else torch). ``chunk`` bounds
-    the hardware points per slab; ``None`` uses each engine's default.
+    unless ``device="cpu"``), ``"sharded"`` (the hardware axis split over
+    ``devices``: ``None`` for every card, an int for the first n, or a
+    sequence of devices, one shard each), ``"numpy"`` (float64 oracle) or
+    ``"auto"`` (numpy below :data:`_AUTO_MIN_HW` points, else sharded when
+    more than one card is attached, else torch; ``devices=`` promotes it
+    to sharded, and the other engines refuse ``devices=``). ``chunk``
+    bounds the hardware points per slab (per shard on the sharded engine);
+    ``None`` uses each engine's default.
 
     Dispatches on the workload's cell family: LM op-graph workloads
     (``workload.family == "lm"``) route to :func:`repro_torch.core.lmcells
@@ -394,6 +423,9 @@ def codesign(
     """
     if workload.family == "lm":
         from .lmcells import lm_codesign, resolve_lm_engine
+
+        if devices is not None:
+            raise ValueError("devices= applies to stencil workloads; the LM sweep runs on `device`")
 
         t0 = time.perf_counter()
         with span("codesign", family="lm"):
@@ -408,7 +440,7 @@ def codesign(
         raise ValueError(f"unsupported cell family {workload.family!r}")
     if hw is None:
         hw = enumerate_hw_space(area_model, max_area=max_area)
-    eng = _resolve_engine(engine, len(hw))
+    eng = _resolve_engine(engine, len(hw), devices)
     C, H = len(workload.cells), len(hw)
     cell_time = np.empty((C, H))
     cell_idx = np.empty((C, H), dtype=np.int64)
@@ -419,12 +451,18 @@ def codesign(
 
     t0 = time.perf_counter()
     with span("codesign", family="stencil", engine=eng, cells=C, hw=H):
-        if eng == "torch":
+        if eng in ("torch", "sharded"):
             for st, cis, sizes in _stencil_groups(workload).values():
-                t, i = sweep.sweep_cells(
-                    st, gpu, sizes, hw.n_sm, hw.n_v, hw.m_sm, lattices[cis[0]], chunk,
-                    device=device,
-                )
+                if eng == "sharded":
+                    t, i = sweep.sweep_cells_sharded(
+                        st, gpu, sizes, hw.n_sm, hw.n_v, hw.m_sm, lattices[cis[0]], chunk,
+                        devices=devices,
+                    )
+                else:
+                    t, i = sweep.sweep_cells(
+                        st, gpu, sizes, hw.n_sm, hw.n_v, hw.m_sm, lattices[cis[0]], chunk,
+                        device=device,
+                    )
                 cell_time[cis] = t
                 cell_idx[cis] = i
         else:

@@ -527,12 +527,16 @@ def _cell_consts(cell: LMCell) -> Tuple[float, ...]:
 
 def resolve_lm_engine(engine: str, n_hw: int) -> str:
     """Concrete engine for an LM sweep over ``n_hw`` hardware points: the
-    stencil rule of :func:`repro_torch.core.codesign._resolve_engine`
-    (``"auto"`` is numpy below 64 points, else torch; ``"jax"`` and
-    ``"sharded"`` are no engines of the port and raise)."""
-    from .codesign import _resolve_engine
+    single-device half of the stencil rule (``"auto"`` is numpy below 64
+    points, else torch; ``"jax"`` and ``"sharded"`` are no LM engines of
+    the port and raise)."""
+    from .codesign import _AUTO_MIN_HW
 
-    return _resolve_engine(engine, n_hw)
+    if engine not in ("auto", "torch", "numpy"):
+        raise ValueError(f"unknown engine {engine!r} (want auto|torch|numpy)")
+    if engine == "auto":
+        return "numpy" if n_hw < _AUTO_MIN_HW else "torch"
+    return engine
 
 
 # ---------------------------------------------------------------------------

@@ -18,12 +18,18 @@ each (size, hardware) optimum.
   are still judged by the tie-aware check against the numpy oracle.
 * :func:`refine_points` runs the batched coordinate descent: every point
   moves to its best single-step neighbour each round, until no point moves.
+* :func:`sweep_cells_sharded` splits the hardware axis over several
+  devices from one process (the reference's ``shard_map`` over a 1-D
+  ``("hw",)`` mesh): each shard's chunks are launched on its own device,
+  asynchronously, so shards overlap across cards, and the results are
+  gathered to the host. Bit-identical to :func:`sweep_cells`.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from typing import Dict, Tuple
@@ -44,8 +50,11 @@ __all__ = [
     "SW_MINS",
     "sweep_cell",
     "sweep_cells",
+    "sweep_cells_sharded",
     "refine_points",
     "decode_sw",
+    "device_count",
+    "clear_caches",
 ]
 
 #: hardware points per chunk for a single problem size (scaled down by P).
@@ -94,8 +103,44 @@ def _note_dispatch(engine: str, cache_key: tuple, p: int, h: int, dt: float) -> 
     _M_CELL_EVALS.labels(engine=engine).inc(p * h)
 
 
+def device_count() -> int:
+    """Attached CUDA devices (0 without a card). The ``engine="auto"`` rule
+    reads it through here, so tests can monkeypatch it."""
+    return torch.cuda.device_count()
+
+
+def _resolve_devices(devices) -> Tuple[torch.device, ...]:
+    """The ``devices=`` knob as a tuple of shard devices.
+
+    ``None`` -> every attached card; an int n -> the first n cards
+    (``ValueError`` outside 1..attached, so a CPU host refuses any int);
+    a sequence -> its entries as given, one shard each. A sequence may
+    repeat a device: ``["cpu"] * 8`` is the port's counterpart of the
+    reference's ``XLA_FLAGS=--xla_force_host_platform_device_count=8``,
+    eight shards in one process.
+    """
+    if devices is None:
+        n = device_count()
+        if n == 0:
+            raise RuntimeError(
+                "no CUDA device is available; pass devices=['cpu', ...] to shard on the CPU"
+            )
+        return tuple(torch.device("cuda", i) for i in range(n))
+    if isinstance(devices, int) and not isinstance(devices, bool):
+        avail = device_count()
+        if not 1 <= devices <= avail:
+            raise ValueError(f"devices={devices} out of range (1..{avail} attached)")
+        return tuple(torch.device("cuda", i) for i in range(devices))
+    devs = tuple(torch.device(d) for d in devices)
+    if not devs:
+        raise ValueError("devices= names no device")
+    return devs
+
+
+@functools.lru_cache(maxsize=64)
 def _lattice_arrays(lattice: TileLattice, gpu: GPUSpec, device):
-    """Pruned (candidates, original-index) lattice columns on ``device``.
+    """Pruned (candidates, original-index) lattice columns on ``device``,
+    cached per (lattice, GPU, device) until :func:`clear_caches`.
 
     Candidates that violate the hardware-independent constraints (eqs.
     10/12-15 with GPU-family constants) are +inf at every hardware point,
@@ -140,6 +185,35 @@ def _best_of_factory(gpu: GPUSpec, lat, keep_idx):
     return best_of
 
 
+def _prep_cells(st: StencilSpec, sizes, lattice, chunk):
+    """Shared argument normalization: default lattice by dimensionality,
+    (P, 4) size validation, P-scaled chunk."""
+    if lattice is None:
+        lattice = LATTICE_3D if st.dims == 3 else LATTICE_2D
+    sizes = np.atleast_2d(np.asarray(sizes, np.float64))
+    if sizes.shape[1] != 4:
+        raise ValueError(f"sizes must be (P, 4) (s1, s2, s3, t); got {sizes.shape}")
+    if chunk is None:
+        chunk = max(1, DEFAULT_CHUNK // sizes.shape[0])
+    return lattice, sizes, int(chunk)
+
+
+def _solve_on(st, gpu, lat, keep_idx, sizes, hw, step: int):
+    """Launch the chunked sweep of ``hw`` (n, 3) on its device; returns the
+    device tensors ``(best_t (P, n), best_i (P, n))`` without waiting."""
+    device = hw.device
+    best_of = _best_of_factory(gpu, lat, keep_idx)
+    sz = torch.as_tensor(sizes, dtype=torch.float32, device=device)
+    p, h = sizes.shape[0], hw.shape[0]
+    best_t = torch.empty((p, h), dtype=torch.float32, device=device)
+    best_i = torch.empty((p, h), dtype=torch.int64, device=device)
+    for lo in range(0, h, step):
+        t, i = best_of(hw[lo:lo + step], sz, st)
+        best_t[:, lo:lo + step] = t
+        best_i[:, lo:lo + step] = i
+    return best_t, best_i
+
+
 def sweep_cells(
     st: StencilSpec,
     gpu: GPUSpec,
@@ -158,14 +232,8 @@ def sweep_cells(
     numpy; infeasible points get ``+inf`` / ``-1``.
     """
     device = resolve_device(device)
-    if lattice is None:
-        lattice = LATTICE_3D if st.dims == 3 else LATTICE_2D
-    sizes = np.atleast_2d(np.asarray(sizes, np.float64))
-    if sizes.shape[1] != 4:
-        raise ValueError(f"sizes must be (P, 4) (s1, s2, s3, t); got {sizes.shape}")
+    lattice, sizes, chunk = _prep_cells(st, sizes, lattice, chunk)
     p = sizes.shape[0]
-    if chunk is None:
-        chunk = max(1, DEFAULT_CHUNK // p)
     hw = torch.as_tensor(
         np.stack([np.asarray(a, np.float64).ravel() for a in (n_sm, n_v, m_sm)], 1),
         dtype=torch.float32, device=device,
@@ -175,15 +243,8 @@ def sweep_cells(
     if keep_idx.numel() == 0 or h == 0:
         return np.full((p, h), np.inf), np.full((p, h), -1, np.int64)
     t0 = time.perf_counter()
-    best_of = _best_of_factory(gpu, lat, keep_idx)
-    sz = torch.as_tensor(sizes, dtype=torch.float32, device=device)
     step = h if chunk <= 0 else int(chunk)
-    best_t = torch.empty((p, h), dtype=torch.float32, device=device)
-    best_i = torch.empty((p, h), dtype=torch.int64, device=device)
-    for lo in range(0, h, step):
-        t, i = best_of(hw[lo:lo + step], sz, st)
-        best_t[:, lo:lo + step] = t
-        best_i[:, lo:lo + step] = i
+    best_t, best_i = _solve_on(st, gpu, lat, keep_idx, sizes, hw, step)
     out = (
         best_t.cpu().numpy().astype(np.float64),  # waits for the device
         best_i.cpu().numpy().astype(np.int64),
@@ -191,6 +252,71 @@ def sweep_cells(
     _note_dispatch(
         "torch", (str(device), p, h, step, keep_idx.numel()), p, h,
         time.perf_counter() - t0,
+    )
+    return out
+
+
+def sweep_cells_sharded(
+    st: StencilSpec,
+    gpu: GPUSpec,
+    sizes: np.ndarray,
+    n_sm: np.ndarray,
+    n_v: np.ndarray,
+    m_sm: np.ndarray,
+    lattice: TileLattice | None = None,
+    chunk: int | None = None,
+    devices=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`sweep_cells` with the hardware axis sharded over devices,
+    from one process (no process group).
+
+    The (H,) hardware columns are padded to a multiple of ``len(devices) x
+    chunk`` (repeating the first point, whose results are discarded) and
+    split into one equal shard per entry of ``devices``; each shard's
+    chunks are launched on its device (launches are asynchronous, so the
+    shards overlap across cards) and the shards are gathered to the host.
+    The chunk is capped at the shard size (``min(chunk, ceil(H / n_dev))``)
+    so a small H does not pad every shard to a full default chunk. Every
+    hardware point is evaluated by the same float32 broadcast as in
+    :func:`sweep_cells`, so times and indices are **bit-identical** to it
+    (``tests/test_torch_sweep_sharded.py``).
+
+    ``devices`` is ``None`` (every card), an int (the first n cards) or a
+    sequence of devices, one shard per entry; a sequence may repeat a
+    device, so ``devices=["cpu"] * 8`` runs eight shards on the CPU, as
+    the reference's ``XLA_FLAGS=--xla_force_host_platform_device_count=8``
+    runs its mesh on one host.
+    """
+    lattice, sizes, chunk = _prep_cells(st, sizes, lattice, chunk)
+    devs = _resolve_devices(devices)
+    n_dev, p = len(devs), sizes.shape[0]
+    cols = [np.asarray(np.asarray(a, np.float64).ravel(), np.float32) for a in (n_sm, n_v, m_sm)]
+    h = cols[0].shape[0]
+    if h == 0:
+        return np.full((p, 0), np.inf), np.full((p, 0), -1, np.int64)
+    if chunk > 0:
+        chunk = min(chunk, -(-h // n_dev))
+    quantum = n_dev * max(chunk, 1)
+    h_pad = -(-h // quantum) * quantum
+    if h_pad != h:
+        cols = [np.concatenate([a, np.full(h_pad - h, a[0], a.dtype)]) for a in cols]
+    hw = np.stack(cols, 1)  # (H_pad, 3) float32, as sweep_cells converts it
+    per = h_pad // n_dev
+    step = per if chunk <= 0 else chunk
+    t0 = time.perf_counter()
+    shards = []
+    for k, dev in enumerate(devs):
+        lat, keep_idx = _lattice_arrays(lattice, gpu, dev)
+        if keep_idx.numel() == 0:
+            return np.full((p, h), np.inf), np.full((p, h), -1, np.int64)
+        hw_k = torch.as_tensor(hw[k * per:(k + 1) * per], device=dev)
+        shards.append(_solve_on(st, gpu, lat, keep_idx, sizes, hw_k, step))
+    out = (  # .cpu() waits for each shard's device in turn
+        np.concatenate([t.cpu().numpy() for t, _ in shards], 1)[:, :h].astype(np.float64),
+        np.concatenate([i.cpu().numpy() for _, i in shards], 1)[:, :h].astype(np.int64),
+    )
+    _note_dispatch(
+        "sharded", (tuple(map(str, devs)), p, h_pad, step), p, h, time.perf_counter() - t0,
     )
     return out
 
@@ -283,3 +409,11 @@ def refine_points(
 def decode_sw(sw_row: np.ndarray) -> Dict[str, int]:
     """(5,) packed software-parameter row -> tile-size dict."""
     return {name: int(v) for name, v in zip(SW_NAMES, sw_row)}
+
+
+def clear_caches() -> None:
+    """Drop the cached lattice columns and the first/steady dispatch
+    record (for tests and benchmarks that time cold starts)."""
+    _lattice_arrays.cache_clear()
+    with _DISPATCH_MU:
+        _DISPATCH_SEEN.clear()

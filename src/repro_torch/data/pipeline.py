@@ -7,8 +7,10 @@ state to checkpoint. Tokens follow a mixed-unigram + copy-structure
 distribution so the LM loss has learnable signal; modality frontends are
 stubbed with deterministic pseudo-embeddings. The numpy part is the
 reference's, unchanged, so a port batch equals the reference's byte for
-byte; the reference's ``mesh=`` placement becomes ``device=``: the card
-unless given.
+byte. A batch lands on ``device`` (the card unless given) or, with
+``mesh=``, on the mesh's device with every leaf a DTensor placed by
+:func:`repro_torch.sharding.partition.batch_specs` (the batch over the
+data axes), as the reference's ``mesh=`` places it.
 """
 
 from __future__ import annotations
@@ -91,12 +93,22 @@ def make_batch(
     device=None,
     batch_override: Optional[int] = None,
     seq_override: Optional[int] = None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """One global training batch on ``device`` (the card unless given):
-    int32 tokens and labels, f32 frontend embeddings."""
-    device = resolve_device(device)
+    int32 tokens and labels, f32 frontend embeddings. With ``mesh`` (a
+    ``DeviceMesh``) each leaf is a DTensor on it, placed by
+    ``batch_specs``; every rank builds the same global batch and keeps its
+    shard."""
     batch = host_batch(cfg, shape, dcfg, step, batch_override, seq_override)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    if mesh is not None:
+        from ..sharding.dtensor import distribute_batch, mesh_device
+
+        device = mesh_device(mesh)
+    else:
+        device = resolve_device(device)
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    return distribute_batch(cfg, out, mesh) if mesh is not None else out
 
 
 class SyntheticPipeline:
@@ -111,9 +123,10 @@ class SyntheticPipeline:
         start_step: int = 0,
         batch_override: Optional[int] = None,
         seq_override: Optional[int] = None,
+        mesh=None,
     ):
-        self.cfg, self.shape, self.dcfg = cfg, shape, dcfg
-        self.device = resolve_device(device)
+        self.cfg, self.shape, self.dcfg, self.mesh = cfg, shape, dcfg, mesh
+        self.device = None if mesh is not None else resolve_device(device)
         self.step = start_step
         self.batch_override = batch_override
         self.seq_override = seq_override
@@ -124,7 +137,7 @@ class SyntheticPipeline:
     def __next__(self) -> Dict[str, torch.Tensor]:
         b = make_batch(
             self.cfg, self.shape, self.dcfg, self.step, self.device,
-            self.batch_override, self.seq_override,
+            self.batch_override, self.seq_override, mesh=self.mesh,
         )
         self.step += 1
         return b

@@ -31,8 +31,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
+from ..sharding.dtensor import local_rows_heads, split_dim, write_slots
 from .layers import Init, apply_rope, dense_init, mrope_rotate, pad_seq, rmsnorm, rmsnorm_init
 
 __all__ = ["Attention", "attn_init", "attention", "NEG_INF"]
@@ -103,7 +105,7 @@ def _sdpa(q, k, v, bias, scale):
     b, sq, h, dk = q.shape
     kh = k.shape[2]
     g = h // kh
-    qg = q.reshape(b, sq, kh, g, dk)
+    qg = split_dim(q, 2, (kh, g))
     scores = torch.einsum("bqkgd,blkd->bkgql", qg, k).float() * scale
     scores = scores + bias[:, None, None, :, :]
     w = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -155,10 +157,16 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale):
 def _attend(q, k, v, q_pos, k_pos, mode, window, impl):
     scale = 1.0 / math.sqrt(q.shape[-1])
     long_seq = max(q.shape[1], k.shape[1]) >= CHUNKED_THRESHOLD
-    if impl == "chunked" or (impl == "auto" and long_seq and q.shape[1] > 1):
-        return _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale)
-    bias = _mask_bias(q_pos, k_pos, mode, window)
-    return _sdpa(q, k, v, bias, scale)
+
+    def core(q, k, v, q_pos, k_pos):
+        if impl == "chunked" or (impl == "auto" and long_seq and q.shape[1] > 1):
+            return _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale)
+        return _sdpa(q, k, v, _mask_bias(q_pos, k_pos, mode, window), scale)
+
+    # on a mesh the core runs on each rank's batch rows and head groups: its
+    # einsums flatten batch and head dims together, which DTensor (torch
+    # 2.11) cannot do when both are sharded
+    return local_rows_heads(core, (q, k, v), (q_pos, k_pos))
 
 
 # ---------------------------------------------------------------------------
@@ -189,8 +197,8 @@ def _write_cache(cache: Dict, updates: Dict, positions, ring: int = 0) -> Dict:
             if s > cap:
                 raise ValueError(f"cannot write {s} entries into a cache of {cap} slots")
             slots = torch.clamp(idx, 0, cap - s) + torch.arange(s, device=buf.device)
-        buf.index_copy_(1, slots.long(), val.to(buf.dtype))
-    idx.add_(s)
+        write_slots(buf, slots.long(), val)
+    (idx.to_local() if isinstance(idx, DTensor) else idx).add_(s)
     return cache
 
 
@@ -243,7 +251,7 @@ def attention(
     is_mrope = cfg.rope == "mrope"
     pos_ids = positions[:, 0] if is_mrope else positions  # (B,S) temporal ids
 
-    q = (x @ params.wq).reshape(b, s, h, dh)
+    q = split_dim(x @ params.wq, -1, (h, dh))
 
     if mode == "cross":
         if cache is not None and kv_source is None:
@@ -254,16 +262,16 @@ def attention(
         if kv_source is None:
             raise ValueError("cross-attention needs kv_source or a filled cache")
         lk = kv_source.shape[1]
-        k = (kv_source @ params.wk).reshape(b, lk, kh, dh)
-        v = (kv_source @ params.wv).reshape(b, lk, kh, dh)
+        k = split_dim(kv_source @ params.wk, -1, (kh, dh))
+        v = split_dim(kv_source @ params.wv, -1, (kh, dh))
         k_pos = torch.arange(lk, device=x.device)[None].expand(b, lk)
         out = _attend(q, k, v, pos_ids, k_pos, "bidir", 0, impl)
         if cache is not None:
             cache = _write_cache(cache, {"k": k, "v": v}, k_pos)
         return _po(params, out, b, s), cache
 
-    k = (x @ params.wk).reshape(b, s, kh, dh)
-    v = (x @ params.wv).reshape(b, s, kh, dh)
+    k = split_dim(x @ params.wk, -1, (kh, dh))
+    v = split_dim(x @ params.wv, -1, (kh, dh))
     if cfg.rope == "standard":
         q = apply_rope(q, pos_ids, cfg.rope_theta)
         k = apply_rope(k, pos_ids, cfg.rope_theta)
@@ -301,7 +309,7 @@ def _mla_project_q(params, cfg, x, pos_ids):
     b, s, _ = x.shape
     h, dh, dr = cfg.n_heads, cfg.head_dim_, a.rope_head_dim
     q_lat = rmsnorm(params.q_norm, x @ params.wq_a)
-    q = (q_lat @ params.wq_b).reshape(b, s, h, dh + dr)
+    q = split_dim(q_lat @ params.wq_b, -1, (h, dh + dr))
     q_nope, q_rope = q[..., :dh], q[..., dh:]
     q_rope = apply_rope(q_rope, pos_ids, cfg.rope_theta)
     return q_nope, q_rope
@@ -326,7 +334,7 @@ def _mla_attention(params, cfg, x, positions, cache, impl):
     ckv, k_rope = _mla_latents(params, cfg, x, pos_ids)
     scale = 1.0 / math.sqrt(dh + dr)
 
-    wkv_b = params.wkv_b.reshape(r_kv, h, dh + dv)
+    wkv_b = split_dim(params.wkv_b, -1, (h, dh + dv))
     wk_b, wv_b = wkv_b[..., :dh], wkv_b[..., dh:]
 
     decode = cache is not None and s == 1

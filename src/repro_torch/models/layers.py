@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding.dtensor import reduce_partial, reduce_partial_grad
+
 __all__ = [
     "Init",
     "torch_dtype",
@@ -129,9 +131,12 @@ def mlp_init(init: Init, d_model: int, d_ff: int, act: str, dtype, n: Optional[i
 # Apply
 # ---------------------------------------------------------------------------
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, offset: float = 0.0, eps: float = 1e-6) -> torch.Tensor:
+    # on a mesh: the residual stream's partial sums are reduced here, and
+    # so are those of the gradient coming back into the output
+    x = reduce_partial(x)
     xf = x.float()
     rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return ((offset + w.float()) * xf * rms).to(x.dtype)
+    return reduce_partial_grad(((offset + w.float()) * xf * rms).to(x.dtype))
 
 
 def mlp(params: MLP, x: torch.Tensor, act: str) -> torch.Tensor:

@@ -18,10 +18,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
+from ..sharding.dtensor import vocab_embedding, vocab_nll
 from .layers import Init, dense_init, embed_init, rmsnorm, rmsnorm_init, sinusoidal_positions, torch_dtype
 from .transformer import block_apply, block_init, stack_apply, stack_init
 
@@ -139,7 +141,10 @@ def _text_positions(batch: int, seq: int, offset, device) -> torch.Tensor:
 # Forward
 # ---------------------------------------------------------------------------
 def _embed(cfg, params, tokens):
-    x = F.embedding(tokens, params.embed)
+    # on a mesh: a masked lookup in each rank's rows of a vocab-sharded
+    # table, summed over the vocab ranks (no DTensor rule back-propagates
+    # the masked partial sum)
+    x = vocab_embedding(params.embed, tokens)
     if cfg.emb_scale:
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
     return x
@@ -220,7 +225,11 @@ def forward_hidden(
             positions = _text_positions(b, s, offset, dev)
 
     if cfg.rope == "learned":
-        x = x + params.pos_embed[torch.clamp(positions, 0, LEARNED_POS_MAX - 1)].to(x.dtype)
+        slots = torch.clamp(positions, 0, LEARNED_POS_MAX - 1)
+        # on a mesh a lookup: indexing's backward (index_put) has no DTensor rule
+        rows = F.embedding(slots, params.pos_embed) if isinstance(params.pos_embed, DTensor) \
+            else params.pos_embed[slots]
+        x = x + rows.to(x.dtype)
 
     stack = params.decoder if cfg.enc_dec else params.stack
     stack_caches = caches.get("stack") if caches is not None else None
@@ -294,11 +303,10 @@ def chunked_ce(
     lc = labels.reshape(b, n_chunks, s // n_chunks).transpose(0, 1)
 
     def chunk_stats(h_chunk, l_chunk):
-        logits = _head(cfg, params, h_chunk).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, torch.clamp(l_chunk, min=0)[..., None].long())[..., 0]
+        # on a mesh the logits stay vocab-sharded (vocab_nll)
+        nll = vocab_nll(_head(cfg, params, h_chunk).float(), l_chunk)
         mask = (l_chunk >= 0).float()
-        return torch.sum((lse - tgt) * mask), torch.sum(mask)
+        return torch.sum(nll * mask), torch.sum(mask)
 
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -313,11 +321,9 @@ def chunked_ce(
 # ---------------------------------------------------------------------------
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Masked CE in f32; labels < 0 are ignored (vision slots, padding)."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    tgt = torch.gather(lf, -1, torch.clamp(labels, min=0)[..., None].long())[..., 0]
+    nll = vocab_nll(logits.float(), labels)  # on a mesh the logits stay vocab-sharded
     mask = (labels >= 0).float()
-    return torch.sum((lse - tgt) * mask) / torch.clamp(mask.sum(), min=1.0)
+    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..sharding.dtensor import local_rows
 from .layers import Init, dense_init, mlp, mlp_init
 
 __all__ = ["MoE", "moe_init", "moe_apply"]
@@ -117,18 +118,23 @@ def moe_apply(params: MoE, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tens
 
     # load-balancing aux loss (Switch-style): E * <f_e> . <p_e>
     me = probs.mean(dim=(0, 1))
-    fe = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
+    # one-hot by comparison: F.one_hot's value check has no DTensor rule
+    fe = (idx[..., 0, None] == torch.arange(e, device=idx.device)).float().mean(dim=(0, 1))
     aux = e * torch.sum(fe * me) * m.router_aux_weight
 
     cap = int(max(1, round(tg * k / e * m.capacity_factor)))  # Python's (banker's) round
 
-    buf, slot, keep, _flat_t, flat_g = _dispatch_group(cfg, xg, gates, idx, cap)
+    # scatter_add_/gather/cumsum over token slots have no DTensor rules:
+    # on a mesh the dispatch and the combine run on each rank's groups
+    buf, slot, keep, _flat_t, flat_g = local_rows(
+        lambda *a: _dispatch_group(cfg, *a, cap), (xg, gates, idx),
+        (True, True, True, False, True))
     # buf: (G, E, cap, d) -> experts see all groups' slices: (E, G*cap, d)
     ein = buf.transpose(0, 1).reshape(e, g * cap, d)
     eout = mlp(params.experts, ein, cfg.act)
     eout = eout.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
 
-    y = _combine_group(eout, slot, keep, flat_g, tg, k)
+    y = local_rows(lambda *a: _combine_group(*a, tg, k), (eout, slot, keep, flat_g), (True,))
 
     if m.n_shared:
         y = y + mlp(params.shared, xg, cfg.act)

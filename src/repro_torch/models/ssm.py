@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..sharding.dtensor import assign, local_rows, split_dim
 from .layers import Init, dense_init, pad_seq, rmsnorm
 
 __all__ = ["SSM", "ssm_init", "ssm_apply", "ssd_reference", "ssm_state_shapes"]
@@ -217,7 +218,7 @@ def ssm_apply(
     a = -torch.exp(params.a_log)  # (H,)
     dta = dt * a  # (B,S,H)
 
-    xh = xs.reshape(bsz, seq, h, p)
+    xh = split_dim(xs, -1, (h, p))
     xdt = xh * dt[..., None].to(xh.dtype)
     # broadcast groups to heads
     rep = h // g
@@ -225,15 +226,20 @@ def ssm_apply(
     cmh = cm.reshape(bsz, seq, g, n).repeat_interleave(rep, dim=2)
 
     state0 = cache["ssm"] if cache is not None else None
-    if seq == 1 and cache is not None:
-        # O(1) decode update
-        st = state0 * torch.exp(dta[:, 0])[..., None, None].to(state0.dtype)
-        st = st + torch.einsum("bhp,bhn->bhpn", xdt[:, 0], bmh[:, 0])
-        y = torch.einsum("bhpn,bhn->bhp", st, cmh[:, 0])[:, None]
-        final = st
-    else:
+
+    def scan(xdt, dta, bmh, cmh, state0):
+        if seq == 1 and state0 is not None:
+            # O(1) decode update
+            st = state0 * torch.exp(dta[:, 0])[..., None, None].to(state0.dtype)
+            st = st + torch.einsum("bhp,bhn->bhpn", xdt[:, 0], bmh[:, 0])
+            return torch.einsum("bhpn,bhn->bhp", st, cmh[:, 0])[:, None], st
         # keep decays in f32 inside the scan; cast at the consumption points
-        y, final = _ssd_chunked(xdt, dta, bmh, cmh, s_cfg.chunk, state0)
+        return _ssd_chunked(xdt, dta, bmh, cmh, s_cfg.chunk, state0)
+
+    # on a mesh the scan runs on each rank's batch rows: cumsum's backward
+    # flips, and aten.flip has no DTensor rule in every torch; nor does an
+    # einsum whose batch and head dims are both sharded (torch 2.11)
+    y, final = local_rows(scan, (xdt, dta, bmh, cmh, state0), (True, True))
 
     y = y + xh * params.d_skip[None, None, :, None].to(xh.dtype)
     y = y.reshape(bsz, seq, d_inner)
@@ -241,7 +247,7 @@ def ssm_apply(
     out = y @ params.out_proj
 
     if cache is not None:
-        cache["conv_x"].copy_(new_conv_x)
-        cache["conv_bc"].copy_(new_conv_bc)
-        cache["ssm"].copy_(final)
+        assign(cache["conv_x"], new_conv_x)
+        assign(cache["conv_bc"], new_conv_bc)
+        assign(cache["ssm"], final)
     return out, cache

@@ -13,6 +13,13 @@ counterpart of the reference's buffer donation), and returns the same
 objects. ``step`` is an int32 0-d tensor on the parameters' device, and the
 schedule and the bias corrections are computed on the device from it, so
 an update reads nothing back to the host.
+
+On a mesh the parameters, gradients and moments are DTensors (ZeRO-1:
+the moments, and the gradients handed in, carry the data axes the
+parameters may lack). The update runs leaf by leaf on the local shards in
+the moments' layout, and the new parameter values are redistributed to
+the parameter's own layout (ZeRO-1's all-gather) before they are copied
+in; the global norm sums each leaf's squares over the mesh.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Any, Dict, Mapping, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "lr_at", "named_leaves"]
 
@@ -76,9 +84,42 @@ def adamw_init(params: Any, cfg: "AdamWConfig | None" = None) -> Dict[str, Any]:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of the per-leaf f32 sums of squares."""
-    leaves = [torch.sum(torch.square(x.float())) for x in named_leaves(tree).values()]
+    """sqrt of the sum of the per-leaf f32 sums of squares (a DTensor
+    leaf's sum is reduced over the mesh first)."""
+    leaves = [_full(torch.sum(torch.square(x.float()))) for x in named_leaves(tree).values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _update_local(p, g, m, v, scale, lr, bc1, bc2, cfg: AdamWConfig) -> None:
+    """One leaf's update on tensors of one layout, in place."""
+    g = g.float() * scale
+    m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
+    v_new = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)
+    del g
+    p32 = p.float()
+    delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps) + cfg.weight_decay * p32
+    p.copy_(p32 - lr * delta)
+    m.copy_(m_new)
+    v.copy_(v_new)
+
+
+def _update_dtensor(p: DTensor, g: DTensor, m: DTensor, v: DTensor, *args) -> None:
+    """The update of a DTensor leaf on the local shards of the moments'
+    layout (ZeRO-1), the result all-gathered into the parameter's."""
+    if g.placements != m.placements:
+        g = g.redistribute(placements=m.placements)
+    same = p.placements == m.placements
+    p_opt = p if same else p.redistribute(placements=m.placements)
+    p_loc = p_opt.to_local() if same else p_opt.to_local().clone()
+    _update_local(p_loc, g.to_local(), m.to_local(), v.to_local(), *args)
+    if not same:
+        new = DTensor.from_local(p_loc, m.device_mesh, m.placements, shape=p.shape,
+                                 stride=p.stride()).redistribute(placements=p.placements)
+        p.to_local().copy_(new.to_local())
 
 
 @torch.no_grad()
@@ -98,14 +139,6 @@ def adamw_update(
     bc1 = 1.0 - cfg.b1 ** sf
     bc2 = 1.0 - cfg.b2 ** sf
     for name, p in flat_p.items():
-        m, v = state["m"][name], state["v"][name]
-        g = flat_g[name].float() * scale
-        m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v_new = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(g)
-        del g
-        p32 = p.float()
-        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps) + cfg.weight_decay * p32
-        p.copy_(p32 - lr * delta)
-        m.copy_(m_new)
-        v.copy_(v_new)
+        update = _update_dtensor if isinstance(p, DTensor) else _update_local
+        update(p, flat_g[name], state["m"][name], state["v"][name], scale, lr, bc1, bc2, cfg)
     return params, state, {"grad_norm": gnorm, "lr": lr}

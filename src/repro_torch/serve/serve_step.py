@@ -2,10 +2,22 @@
 generation loop -- the JAX package's ``serve/serve_step.py``.
 
 The reference jits each step and donates the caches to decode. Here each
-step is a plain eager function under ``torch.inference_mode()``: no jit,
-no CUDA graph, no ``torch.compile``. Decode updates the caches in place
-(the port's counterpart of donation) and returns them. There is no
-``mesh`` argument: sharding is not ported yet.
+step is a plain eager function under ``torch.inference_mode()``
+(``no_grad`` on a mesh, see :func:`_no_autograd`): no jit, no CUDA graph,
+no ``torch.compile``. Decode updates the caches in place (the port's
+counterpart of donation) and returns them.
+
+With ``mesh=`` (a ``DeviceMesh``) the steps serve a model whose
+parameters are DTensors placed by ``param_specs``
+(:func:`repro_torch.sharding.dtensor.distribute_model`; ``generate_timed``
+places a plain model itself): prefill places the batch by
+``batch_specs`` and builds the caches placed by ``cache_specs`` -- the
+batch over the data axes, kv heads over ``model``, and the cache length
+over the data axes when the batch cannot shard (the long-context
+fallback) --, decode writes them in place, shard by shard, with no read
+back to the host. The plain tensors the model makes (positions, masks)
+count as replicated, and the logits come back as full plain tensors on
+every rank.
 """
 
 from __future__ import annotations
@@ -14,11 +26,21 @@ import time
 from typing import Dict, List
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..models.layers import torch_dtype
 from ..models.model import Model, _head, forward, forward_hidden
+from ..sharding.dtensor import (
+    check_placed,
+    distribute_batch,
+    distribute_caches,
+    distribute_model,
+    full,
+    mesh_device,
+    replicating,
+)
 from .kvcache import init_caches
 
 __all__ = ["make_prefill", "make_decode_step", "greedy", "generate", "generate_timed"]
@@ -29,36 +51,58 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make_prefill(cfg: ArchConfig, max_len: int = 0, impl: str = "auto", device=None):
+def _no_autograd(mesh):
+    """``inference_mode``; on a mesh ``no_grad``, because a DTensor view of
+    an inference tensor cannot take the version counter DTensor gives it
+    (the SSM's shifted cache slices)."""
+    return torch.no_grad() if mesh is not None else torch.inference_mode()
+
+
+def make_prefill(cfg: ArchConfig, max_len: int = 0, impl: str = "auto", device=None, mesh=None):
     """``(params, batch) -> (last-position logits (B, V), caches)``.
     ``max_len`` is the cache capacity (>= prompt + generation length); the
     caches are built on ``device`` (the card unless given), where the
-    model and the batch must lie."""
-    device = resolve_device(device)
+    model and the batch must lie, or on ``mesh``, placed by
+    ``cache_specs`` (the model placed by ``param_specs`` already)."""
+    device = mesh_device(mesh) if mesh is not None else resolve_device(device)
 
-    @torch.inference_mode()
+    @_no_autograd(mesh)
     def prefill(params: Model, batch: Dict):
         b, s = batch["tokens"].shape
+        _check(params, mesh)
         caches = init_caches(cfg, b, max_len or s, dtype=torch_dtype(cfg.dtype), device=device)
-        hidden, caches, _ = forward_hidden(params, cfg, batch, caches=caches, impl=impl)
-        # head on the last position only: prefill never needs S x V logits
-        logits = _head(cfg, params, hidden[:, -1:])
-        return logits[:, 0], caches
+        caches = distribute_caches(cfg, caches, mesh, batch_size=b)
+        with replicating(mesh):
+            hidden, caches, _ = forward_hidden(params, cfg, distribute_batch(cfg, batch, mesh),
+                                               caches=caches, impl=impl)
+            # head on the last position only: prefill never needs S x V logits
+            logits = _head(cfg, params, hidden[:, -1:])[:, 0]
+        return full(logits), caches
 
     return prefill
 
 
-def make_decode_step(cfg: ArchConfig, impl: str = "auto"):
+def make_decode_step(cfg: ArchConfig, impl: str = "auto", mesh=None):
     """``(params, tokens (B, 1), caches, cache_index) -> (logits (B, V),
-    caches)``; the caches are updated in place and returned."""
+    caches)``; the caches are updated in place and returned. With
+    ``mesh``: the model and the caches are prefill's on that mesh."""
 
-    @torch.inference_mode()
+    @_no_autograd(mesh)
     def decode(params: Model, tokens: torch.Tensor, caches: Dict, cache_index):
-        batch = {"tokens": tokens, "cache_index": cache_index}
-        logits, caches, _ = forward(params, cfg, batch, caches=caches, impl=impl)
-        return logits[:, -1], caches
+        _check(params, mesh)
+        batch = distribute_batch(cfg, {"tokens": tokens}, mesh)
+        batch["cache_index"] = cache_index
+        with replicating(mesh):
+            logits, caches, _ = forward(params, cfg, batch, caches=caches, impl=impl)
+            logits = logits[:, -1]
+        return full(logits), caches
 
     return decode
+
+
+def _check(params: Model, mesh) -> None:
+    if mesh is not None:
+        check_placed([params.embed], mesh)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -73,6 +117,7 @@ def generate_timed(
     steps: int,
     impl: str = "auto",
     device=None,
+    mesh=None,
 ) -> Dict:
     """Prefill the prompt batch, then greedy-decode ``steps`` tokens,
     keeping what a caller measures: ``{"tokens" (B, steps) int32,
@@ -80,12 +125,18 @@ def generate_timed(
     (after the last step), "prefill_s", "decode_s" [per decode step]}``.
     Each clock is the host's, stopped once the device has finished the
     step. Vision models reserve ``n_frontend_tokens`` more cache slots for
-    the prepended patches."""
-    device = resolve_device(device)
+    the prepended patches. With ``mesh``, a plain model is first placed on
+    it by ``param_specs`` (in place) and the steps serve on the mesh."""
+    if mesh is not None:
+        device = mesh_device(mesh)
+        if not isinstance(params.embed, DTensor):
+            distribute_model(params, cfg, mesh)
+    else:
+        device = resolve_device(device)
     b, s = batch["tokens"].shape
     extra = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
-    prefill = make_prefill(cfg, max_len=s + steps + extra, impl=impl, device=device)
-    decode = make_decode_step(cfg, impl=impl)
+    prefill = make_prefill(cfg, max_len=s + steps + extra, impl=impl, device=device, mesh=mesh)
+    decode = make_decode_step(cfg, impl=impl, mesh=mesh)
     _sync(device)
     t0 = time.perf_counter()
     logits, caches = prefill(params, batch)
@@ -113,7 +164,8 @@ def generate(
     steps: int,
     impl: str = "auto",
     device=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Prefill the prompt batch, then greedy-decode ``steps`` tokens.
     Returns (B, steps) generated ids: :func:`generate_timed`'s tokens."""
-    return generate_timed(params, cfg, batch, steps, impl=impl, device=device)["tokens"]
+    return generate_timed(params, cfg, batch, steps, impl=impl, device=device, mesh=mesh)["tokens"]

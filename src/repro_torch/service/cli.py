@@ -39,14 +39,19 @@ The store location is ``--store``, else ``$REPRO_STORE``, else
 The port, against the JAX package's CLI (same subcommands, flags, output
 lines and exit codes otherwise):
 
-* ``--engine`` is ``auto|torch|numpy`` (``auto``: numpy below 64 hardware
-  points, else torch). ``"jax"`` and ``"sharded"`` remain digest names
-  only: the port serves and re-keys such artifacts, it cannot sweep them.
-* ``--device`` (default: the card) replaces ``--devices``. ``build``,
-  ``query`` on a miss and ``portfolio`` sweep there when the resolved
-  engine is torch, and ``portfolio`` scores there; without a card and
-  without ``--device cpu`` they exit 2 with one line. A warm store and
+* ``--engine`` is ``auto|torch|sharded|numpy`` (``auto``: numpy below 64
+  hardware points, else sharded when more than one card is attached, else
+  torch). ``"jax"`` remains a digest name only: the port serves and
+  re-keys such artifacts, it cannot sweep them.
+* ``--device`` (default: the card) is where the torch engine sweeps:
+  ``build``, ``query`` on a miss and ``portfolio`` sweep there when the
+  resolved engine is torch, and ``portfolio`` scores there; without a card
+  and without ``--device cpu`` they exit 2 with one line. A warm store and
   the numpy oracle need no device.
+* ``--devices N`` shards the stencil sweep's hardware axis over the first
+  N cards (the sharded engine; it promotes ``--engine auto``), as the
+  JAX package's ``--devices``; a request for more cards than are attached
+  exits 2 with one line.
 * ``--portfolio-engine`` is ``torch|numpy`` (default torch, on the card,
   where the JAX package defaults to its numpy oracle: the port's entry
   points run on the card unless asked otherwise; ``numpy`` names the
@@ -145,12 +150,15 @@ def _add_server_args(p: argparse.ArgumentParser) -> None:
                    help="hardware-space enumeration budget (mm^2)")
     p.add_argument("--downsample", type=int, default=1,
                    help="keep every Nth hardware point (quick demos)")
-    p.add_argument("--engine", choices=("auto", "torch", "numpy"), default="auto",
+    p.add_argument("--engine", choices=("auto", "torch", "sharded", "numpy"), default="auto",
                    help="sweep engine of a build (auto: numpy below 64 "
-                        "hardware points, else torch)")
+                        "hardware points, else sharded on more than one card, "
+                        "else torch)")
     p.add_argument("--device", default=None,
                    help="torch device a build sweeps on (default: the card; "
                         "'cpu' runs on the CPU)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="sharded engine: first N attached cards (default: all)")
 
 
 def _server(args):
@@ -166,6 +174,10 @@ def _server(args):
     if args.workload == "lm":
         from repro_torch.core.lmcells import LM_GPU_NAME, lm_workload
 
+        if args.devices is not None or args.engine == "sharded":
+            raise _die("--devices and --engine sharded apply to the stencil sweep; "
+                       "an LM build runs on --device")
+
         from .server import LMServer
 
         kw = {}
@@ -180,24 +192,40 @@ def _server(args):
             batch_window=0.0,
             **kw,
         )
-    return CodesignServer(
-        ArtifactStore(args.store),
-        gpu=_gpu(args.gpu or "gtx980"),
-        max_area=args.max_hw_area,
-        downsample=args.downsample,
-        engine=args.engine,
-        batch_window=0.0,  # CLI is single-threaded; no rendezvous needed
-    )
+    try:
+        return CodesignServer(
+            ArtifactStore(args.store),
+            gpu=_gpu(args.gpu or "gtx980"),
+            max_area=args.max_hw_area,
+            downsample=args.downsample,
+            engine=args.engine,
+            devices=args.devices,
+            batch_window=0.0,  # CLI is single-threaded; no rendezvous needed
+        )
+    except ValueError as e:  # --devices with a non-sharded --engine
+        raise _die(str(e)) from None
 
 
 def _ready(args):
     """:func:`_server`, with ``--device`` resolved only when its miss path
-    will sweep on torch: a warm store and the numpy oracle need no device."""
+    will sweep on torch (and ``--devices`` checked when it will shard): a
+    warm store and the numpy oracle need no device."""
     from repro_torch.core.codesign import _resolve_engine
+    from repro_torch.core.lmcells import resolve_lm_engine
+    from repro_torch.core.sweep import _resolve_devices
 
     srv = _server(args)
-    if not srv.warm and _resolve_engine(srv.engine, len(srv.hw)) == "torch":
+    if srv.warm:
+        return srv
+    resolve = resolve_lm_engine if args.workload == "lm" else _resolve_engine
+    engine = resolve(srv.engine, len(srv.hw))
+    if engine == "torch":
         srv.device = _device(args.device)
+    elif engine == "sharded":
+        try:
+            _resolve_devices(srv.devices)
+        except (RuntimeError, ValueError) as e:
+            raise _die(f"{e}: the sharded engine shards over cards") from None
     return srv
 
 

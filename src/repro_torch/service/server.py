@@ -35,6 +35,7 @@ from repro_torch.core.area import MAXWELL, LinearAreaModel
 from repro_torch.core.codesign import (
     CodesignResult,
     HardwareSpace,
+    _devices_engine,
     codesign,
     enumerate_hw_space,
 )
@@ -56,7 +57,7 @@ from repro_torch.obs.trace import span
 from . import faults
 from .query import QueryEngine, QueryRequest, QueryResponse
 from .resilience import check_deadline, remaining_s
-from .store import Artifact, ArtifactStore
+from .store import Artifact, ArtifactStore, built_family
 
 __all__ = ["CodesignServer", "LMServer", "server_from_artifact"]
 
@@ -281,10 +282,19 @@ class CodesignServer(_BaseServer):
     still thread-safe). The default workload is the paper's Fig.-3
     six-stencil uniform mix; ``downsample`` thins the hardware space for
     demos/CI. ``engine`` picks the miss path's sweep engine (``"torch"``,
-    ``"numpy"`` or ``"auto"``, as :func:`repro_torch.core.codesign
-    .codesign`) and is part of the content key; ``device`` is where the
-    torch engine sweeps: the card unless ``device="cpu"``. ``"jax"`` and
-    ``"sharded"`` name the JAX package's matrices: a server so configured
+    ``"sharded"``, ``"numpy"`` or ``"auto"``, as :func:`repro_torch.core
+    .codesign.codesign`) and is part of the content key; ``device`` is where
+    the torch engine sweeps: the card unless ``device="cpu"``; ``devices``
+    is the sharded engine's shard devices (``None`` for every card, an int
+    for the first n, or a sequence). ``devices=`` promotes ``"auto"`` to
+    ``"sharded"`` once, here, so the key, the miss-path build and the
+    stored artifact name one engine; the other engines refuse it.
+    The key digests the matrix the engine builds
+    (:func:`repro_torch.service.store.built_family`): the port's
+    ``"sharded"`` engine builds the torch engine's matrix, so it keys as
+    ``"torch"``, never as the JAX package's ``"sharded"``/``"jax"``
+    family, whose matrix differs on ties. ``"jax"`` names only the JAX
+    package's matrix (its sharded sweeps too): a server so configured
     serves such an artifact warm, and its miss path raises.
     """
 
@@ -304,12 +314,14 @@ class CodesignServer(_BaseServer):
         lattice_3d: TileLattice = LATTICE_3D,
         batch_window: float = 0.002,
         lru_size: int = 256,
+        devices=None,
     ):
         self._init_serving(store, batch_window, lru_size)
         self.workload = workload or paper_workload()
         self.gpu = gpu
         self.chunk = chunk
         self.device = device
+        self.devices = devices
         self.lattice_2d = lattice_2d
         self.lattice_3d = lattice_3d
         if hw is None:
@@ -317,9 +329,11 @@ class CodesignServer(_BaseServer):
             if downsample > 1:
                 hw = hw.downsample(downsample)
         self.hw = hw
+        # the devices= promotion, once: key, build and artifact agree
+        engine = _devices_engine(engine, devices)
         self.engine = engine
         self.key = store.key_for(
-            self.workload, gpu, self.hw, engine, lattice_2d, lattice_3d
+            self.workload, gpu, self.hw, built_family(engine), lattice_2d, lattice_3d
         )
 
     def _solve(self) -> Artifact:
@@ -332,6 +346,7 @@ class CodesignServer(_BaseServer):
             chunk=self.chunk,
             engine=self.engine,
             device=self.device,
+            devices=self.devices,
         )
         return self.store.put(
             result,

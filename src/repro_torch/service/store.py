@@ -81,6 +81,7 @@ __all__ = [
     "ArtifactStore",
     "BuildLockTimeoutError",
     "artifact_spec",
+    "built_family",
     "lm_artifact_spec",
     "spec_key",
 ]
@@ -106,17 +107,26 @@ FORMAT_VERSION = 1
 #: "sweep".
 KINDS = ("sweep", "measurement", "calibration", "telemetry", "portfolio")
 
-#: engines whose optima matrices are bit-identical share one content
-#: address: the JAX package's "sharded" is its "jax" program over a device
-#: mesh, so both digest as "jax" -- the port never sweeps with either, but
-#: must recompute such an artifact's key to serve it. "numpy" is the same
-#: float64 oracle in both packages and keeps the JAX package's key.
-#: "torch" is the port's float32 broadcast engine: its matrix agrees with
-#: "jax" and "numpy" only up to ties at RTOL 1e-5, so it keeps a key of
-#: its own and never shares one with either (an LM sweep's torch engine
-#: runs in float64, and keeps its own key all the same). "auto" is
-#: resolved to the concrete engine it would pick *before* digesting.
+#: engine names digest to the matrix family they name, in the JAX
+#: package's vocabulary, so a key can be recomputed for an artifact either
+#: package wrote: its "sharded" is its "jax" program over a device mesh,
+#: so both digest as "jax". "numpy" is the same float64 oracle in both
+#: packages and keeps the JAX package's key. "torch" is the port's float32
+#: broadcast engine: its matrix agrees with "jax" and "numpy" only up to
+#: ties at RTOL 1e-5, so it keeps a key of its own and never shares one
+#: with either (an LM sweep's torch engine runs in float64, and keeps its
+#: own key all the same). "auto" is resolved to the concrete engine it
+#: would pick *before* digesting.
 _DIGEST_ENGINE = {"sharded": "jax"}
+
+#: the family of the matrix each of the port's own engines *builds*, which
+#: is what a port-built artifact is keyed and stored under. The port's
+#: "sharded" engine runs the torch engine shard by shard and returns its
+#: matrix bit for bit, so its sweeps key as "torch": never under the JAX
+#: package's "sharded"/"jax" key, whose matrix differs from torch's on
+#: ties. The name "sharded" keeps its digest above only to find the JAX
+#: package's artifacts.
+_BUILT_FAMILY = {"sharded": "torch"}
 
 #: engine names a key may digest: the port's own and the JAX package's.
 _DIGEST_NAMES = ("auto", "torch", "numpy", "jax", "sharded")
@@ -160,8 +170,10 @@ class BuildLockTimeoutError(GatewayError):
 def _digest_engine(engine: str, n_hw: int) -> str:
     """The matrix family a key names. ``"auto"`` resolves by the port's
     own rule (:func:`repro_torch.core.codesign._resolve_engine`): numpy
-    below ``_AUTO_MIN_HW`` hardware points, else torch. An unknown name
-    raises rather than being keyed under some other engine's matrix."""
+    below ``_AUTO_MIN_HW`` hardware points, else the sharded engine on
+    more than one card or the torch engine, which build one matrix, torch's.
+    An unknown name raises rather than being keyed under some other
+    engine's matrix."""
     if engine not in _DIGEST_NAMES:
         raise ValueError(
             f"unknown engine {engine!r} (want one of {list(_DIGEST_NAMES)})"
@@ -171,6 +183,10 @@ def _digest_engine(engine: str, n_hw: int) -> str:
     return _DIGEST_ENGINE.get(engine, engine)
 
 
+def built_family(engine: str) -> str:
+    """The engine name a sweep the port's ``engine`` built is keyed under
+    (``"sharded"`` -> ``"torch"``; every other name as it is)."""
+    return _BUILT_FAMILY.get(engine, engine)
 
 
 def _canonical_json(obj) -> str:
@@ -674,10 +690,14 @@ class ArtifactStore:
         routing is not part of the content address, so this never moves
         the key. Dispatches on the result's cell family: LM results
         (:class:`repro_torch.core.lmcells.LMCodesignResult`) key via
-        :func:`lm_artifact_spec` (the tile-lattice pins do not apply)."""
+        :func:`lm_artifact_spec` (the tile-lattice pins do not apply).
+        ``engine`` is the port's engine that built ``result``; the key
+        digests the matrix family it builds (:func:`built_family`: a
+        sharded sweep keys as torch), the manifest records the engine."""
+        family = built_family(engine)
         if getattr(result, "family", "stencil") == "lm":
             spec = lm_artifact_spec(
-                result.workload, result.hw, engine, result.gpu_name
+                result.workload, result.hw, family, result.gpu_name
             )
         else:
             lat2 = lattice_2d or next(
@@ -687,7 +707,7 @@ class ArtifactStore:
                 (lat for lat in result.lattices if len(lat.t_s3) > 1), LATTICE_3D
             )
             spec = artifact_spec(
-                result.workload, result.gpu, result.hw, engine, lat2, lat3
+                result.workload, result.gpu, result.hw, family, lat2, lat3
             )
         key = spec_key(spec)
         manifest, arrays = result.artifact_payload()

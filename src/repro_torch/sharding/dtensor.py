@@ -1,0 +1,548 @@
+"""The port's tensors on a ``DeviceMesh``: parameters, train states,
+batches and caches as DTensors placed by the partition rules, and the few
+model ops that DTensor's sharding propagation cannot take as they stand.
+
+Placing never communicates: every rank holds the same full values (drawn
+from one seed, or read from one checkpoint file) and keeps its own shard
+(``distribute_tensor(..., src_data_rank=None)``). From there DTensor's
+propagation plays the part GSPMD plays in the reference: column- and
+row-parallel products, partial sums reduced where a replicated value is
+needed. Where an op has no correct rule, the model calls one of the
+helpers below; each is the identity on a plain tensor, so the
+single-device path does not change by a bit:
+
+* :func:`vocab_embedding` -- the embedding lookup in a vocab-sharded
+  table gives a masked partial sum, which DTensor can neither
+  reduce-scatter into the next op's layout nor back-propagate a partial
+  gradient into; it runs under ``local_map`` as a masked lookup in each
+  rank's rows of the table, the activations summed over the vocab ranks
+  (nothing of the table moves);
+* :func:`vocab_nll` -- the loss gathers each target's logit along the
+  vocab dim (``torch.gather``), which has no rule for a sharded gather
+  dim; it runs under ``local_map`` on each rank's vocab shard: the
+  log-sum-exp from the local max and sum, and the target's logit from the
+  rank that holds it, each reduced over the vocab ranks as one value per
+  position (the logits never gather);
+* :func:`assign` and :func:`write_slots` -- the caches' in-place writes
+  (``copy_``, ``index_copy_`` of new slots) want the value in the cache's
+  own layout and act on the local shards; when the cache length is
+  sharded (the long-context fallback) each rank writes the slots that fall
+  in its own range, without reading anything back to the host;
+* :func:`reduce_partial` -- the row-parallel products (attention's and
+  the MLP's output projections) leave the residual stream a partial sum
+  over ``model``, which DTensor carries on through the residual adds and
+  even through the norm (linear once its scale is computed); the next
+  column-parallel product then gathers its *weight* rather than reduce
+  the activations. The norm reduces its input first, once per
+  projection, as GSPMD and tensor parallelism do; and
+  :func:`reduce_partial_grad` does the same for the gradient that the
+  column-parallel products hand back to the norm's output, which would
+  otherwise reach the row-parallel products' backward as a partial sum
+  and gather their weights there;
+* :func:`unshard_dim` -- gathers one dim (:func:`split_dim`'s fallback);
+* :func:`split_dim` -- splitting a sharded dim into heads (``view``) has
+  no rule when the leading factor does not divide the shard count (GQA's
+  kv heads on a wider model axis: llama's 8 on 16, the reduced archs' 2 on
+  4); the dim is gathered first, which GSPMD does on its own;
+* :func:`local_rows` -- the MoE dispatch and combine (``scatter_add_`` and
+  ``gather`` over token slots, ``cumsum`` over routing ranks) have no
+  rules, nor the SSM scan's backward (``aten.flip``, from ``cumsum``'s);
+  they run under ``local_map`` on each rank's routing groups or batch
+  rows, with that dim kept sharded over the data axes and every other
+  mesh dim replicated;
+* :func:`local_rows_heads` -- the attention core's einsums flatten the
+  batch and head dims together, which DTensor cannot do when both are
+  sharded (torch 2.11); it runs under ``local_map`` on each rank's batch
+  rows and head groups.
+
+The train and serve steps run one body on both: :func:`distribute_batch`,
+:func:`distribute_caches`, :func:`microbatches`, :func:`replicating`,
+:func:`check_placed`, :func:`zeros_like`, :func:`add_`, :func:`to_layout`
+and :func:`full` place, slice, accumulate and gather DTensors and leave
+plain tensors (``mesh=None``) as the single-device path has them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Callable, Dict, Iterator, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+from .partition import batch_specs, cache_specs, opt_state_specs, param_specs, to_placements
+
+__all__ = [
+    "is_mesh",
+    "mesh_device",
+    "opt_placements",
+    "place",
+    "full",
+    "distribute_model",
+    "distribute_batch",
+    "distribute_caches",
+    "microbatches",
+    "replicating",
+    "check_placed",
+    "zeros_like",
+    "add_",
+    "to_layout",
+    "vocab_embedding",
+    "vocab_nll",
+    "reduce_partial",
+    "reduce_partial_grad",
+    "unshard_dim",
+    "split_dim",
+    "assign",
+    "write_slots",
+    "local_rows",
+    "local_rows_heads",
+]
+
+
+def is_mesh(x) -> bool:
+    return isinstance(x, DeviceMesh)
+
+
+def mesh_device(mesh: DeviceMesh) -> torch.device:
+    """This rank's device of ``mesh`` (the current card for a CUDA mesh)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def place(t: torch.Tensor, mesh: DeviceMesh, spec) -> DTensor:
+    """``t`` (the same full value on every rank) as a DTensor with the
+    placements of ``spec``; each rank keeps its shard, no communication."""
+    return distribute_tensor(t, mesh, to_placements(spec, mesh), src_data_rank=None)
+
+
+def full(t):
+    """A DTensor's full value (a collective: every rank must call it); a
+    plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _set_param(model: nn.Module, name: str, value: torch.Tensor) -> None:
+    *owner, leaf = name.split(".")
+    module = model.get_submodule(".".join(owner))
+    module.register_parameter(leaf, nn.Parameter(value, requires_grad=True))
+
+
+def distribute_model(model: nn.Module, cfg, mesh: DeviceMesh, fsdp: bool = False) -> nn.Module:
+    """Replace every parameter of ``model`` by a DTensor placed by
+    :func:`~repro_torch.sharding.partition.param_specs`, in place."""
+    specs = param_specs(cfg, model, mesh, fsdp)
+    with torch.no_grad():
+        for name, p in list(model.named_parameters()):
+            _set_param(model, name, place(p.detach(), mesh, specs[name]))
+    return model
+
+
+def opt_placements(cfg, model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> Dict[str, list]:
+    """ZeRO-1 placements of the optimizer moments, by parameter name."""
+    return {n: to_placements(s, mesh) for n, s in opt_state_specs(cfg, model, mesh, fsdp).items()}
+
+
+def distribute_batch(cfg, batch: Dict[str, torch.Tensor], mesh) -> Dict[str, DTensor]:
+    """A global batch (the same on every rank) placed by ``batch_specs``;
+    leaves that are DTensors already are kept. ``mesh=None``: the batch
+    as it is."""
+    if mesh is None:
+        return batch
+    b = next(iter(batch.values())).shape[0]
+    specs = batch_specs(cfg, mesh, batch_size=b)
+    return {k: v if isinstance(v, DTensor) else place(v, mesh, specs.get(k, specs["tokens"]))
+            for k, v in batch.items()}
+
+
+def distribute_caches(cfg, caches: Dict, mesh, batch_size: int) -> Dict:
+    """Caches (``init_caches``' layout, the same on every rank) placed by
+    ``cache_specs``, including the long-context fallback that shards the
+    cache length over the data axes when the batch cannot shard.
+    ``mesh=None``: the caches as they are."""
+    if mesh is None:
+        return caches
+    specs = cache_specs(cfg, caches, mesh, batch_size=batch_size)
+    layers = [
+        None if layer is None else {
+            part: {k: place(t, mesh, specs["stack"][i][part][k]) for k, t in leaves.items()}
+            for part, leaves in layer.items()
+        }
+        for i, layer in enumerate(caches["stack"])
+    ]
+    out = {"stack": layers}
+    if "enc_out" in caches:
+        out["enc_out"] = place(caches["enc_out"], mesh, specs["enc_out"])
+    return out
+
+
+def microbatches(cfg, batch: Dict[str, torch.Tensor], m: int) -> Iterator[Dict]:
+    """The ``m`` microbatches of ``batch``, row blocks in order. A placed
+    batch is gathered once and each block placed again by ``batch_specs``,
+    so every microbatch stays sharded over the data axes (a slice of a
+    sharded dim would leave a microbatch on one data rank; the reference
+    re-pins the sharding for the same reason)."""
+    leaf = next(iter(batch.values()))
+    mesh = leaf.device_mesh if isinstance(leaf, DTensor) else None
+    whole = {k: full(v) for k, v in batch.items()}
+    b = leaf.shape[0]
+    for i in range(m):
+        mb = {k: v.reshape(m, b // m, *v.shape[1:])[i] for k, v in whole.items()}
+        yield distribute_batch(cfg, mb, mesh)
+
+
+def replicating(mesh):
+    """On a mesh, DTensor's ``implicit_replication``: the plain tensors
+    the model makes (positions, masks, rope tables) hold the same global
+    values on every rank and count as replicated. Else nothing."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def check_placed(params: Sequence[torch.Tensor], where) -> None:
+    """Raise unless ``params`` lie where a step runs: DTensors on the mesh
+    ``where``, or plain tensors on a device of ``where``'s type."""
+    if is_mesh(where):
+        if not all(isinstance(p, DTensor) and p.device_mesh == where for p in params):
+            raise ValueError("the parameters are not DTensors on the step's mesh: place them "
+                             "with repro_torch.sharding.dtensor.distribute_model first")
+    elif params[0].device.type != where.type:
+        raise ValueError(f"the state lies on {params[0].device}, the step on {where}")
+
+
+def zeros_like(x: torch.Tensor) -> torch.Tensor:
+    """Zeros of ``x``'s shape, dtype and layout; a DTensor's placements
+    are kept as they are, partial sums too (``torch.zeros_like`` makes a
+    partial DTensor replicated)."""
+    if not isinstance(x, DTensor):
+        return torch.zeros_like(x)
+    return DTensor.from_local(torch.zeros_like(x.to_local()), x.device_mesh, x.placements,
+                              shape=x.shape, stride=x.stride())
+
+
+def add_(acc: torch.Tensor, x: torch.Tensor) -> None:
+    """``acc += x`` in place; a DTensor ``acc`` adds ``x`` brought into its
+    own layout, shard by shard (partial sums add as partial sums)."""
+    if not isinstance(acc, DTensor):
+        acc += x
+        return
+    acc.to_local().add_(to_layout(x, acc).to_local())
+
+
+def to_layout(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` redistributed to ``like``'s placements; a plain ``x`` as it is."""
+    if not isinstance(x, DTensor) or list(x.placements) == list(like.placements):
+        return x
+    return x.redistribute(placements=like.placements)
+
+
+class _SumOver(torch.autograd.Function):
+    """``all_reduce(SUM)`` over process groups in the forward, the identity
+    in the backward: the sum is the same on every rank of those groups, so
+    each rank's part takes the (replicated) gradient of the sum as it is."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        x = x.clone()
+        for g in groups:
+            dist.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _vocab_shards(x: DTensor, dim: int):
+    """(mesh dims that shard ``x`` along ``dim``, this rank's offset along
+    ``dim``, its local extent there)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    dims = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == dim]
+    shape, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+    return dims, offset[dim], shape[dim]
+
+
+def _as_dtensor(x, mesh: DeviceMesh):
+    if isinstance(x, DTensor):
+        return x
+    return distribute_tensor(x, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+
+
+def vocab_embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, table)``. A DTensor ``table`` sharded over its
+    vocab dim (dim 0) is read in place: each rank looks up the ids that
+    fall in its rows (the others give zeros) and the activations are
+    summed over the vocab ranks, so the result has ``ids``' layout,
+    replicated over those ranks; the table's other dim is gathered if
+    sharded (FSDP). Any other table: the lookup as it is."""
+    if not isinstance(table, DTensor) or not any(
+        isinstance(p, Shard) and p.dim == 0 for p in table.placements
+    ):
+        return F.embedding(ids, table)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    vdims = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    t_pl = [Shard(0) if i in vdims else Replicate() for i in range(mesh.ndim)]
+    ids = _as_dtensor(ids, mesh)
+    i_pl = [Replicate() if i in vdims or isinstance(p, Partial) else p
+            for i, p in enumerate(ids.placements)]
+    table = table.redistribute(placements=t_pl)
+    _, lo, n = _vocab_shards(table, 0)
+    groups = [mesh.get_group(i) for i in vdims]
+
+    def lookup(tbl, idx):
+        loc = idx - lo
+        hit = (loc >= 0) & (loc < n)
+        x = F.embedding(torch.where(hit, loc, 0), tbl)
+        return _SumOver.apply(torch.where(hit[..., None], x, 0), groups)
+
+    # each rank's table gradient comes from its own ids: a partial sum
+    # over the mesh dims that shard the ids
+    g_pl = [p if i in vdims else Partial() if isinstance(i_pl[i], Shard) else Replicate()
+            for i, p in enumerate(t_pl)]
+    return local_map(_local(lookup), out_placements=i_pl, in_placements=(t_pl, i_pl),
+                     in_grad_placements=(g_pl, i_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, ids)
+
+
+def vocab_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per position ``logsumexp(logits) - logits[label]`` over the last
+    (vocab) dim (labels < 0 read entry 0; the caller masks them). A
+    DTensor ``logits`` sharded over its vocab dim stays so: the max, the
+    sum of exponentials and the target's logit are reduced over the vocab
+    ranks as one value per position, under ``local_map``; the result has
+    the logits' row layout. Plain or vocab-replicated logits: the
+    single-device ops as they are."""
+    vd = logits.ndim - 1
+    if isinstance(logits, DTensor) and any(isinstance(p, Partial) for p in logits.placements):
+        # partial sums are reduce-scattered over the vocab
+        logits = logits.redistribute(placements=[Shard(vd) if isinstance(p, Partial) else p
+                                                 for p in logits.placements])
+    if not isinstance(logits, DTensor) or not any(
+        isinstance(p, Shard) and p.dim == vd for p in logits.placements
+    ):
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None].long())[..., 0]
+        return lse - tgt
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    l_pl = list(logits.placements)
+    r_pl = [Replicate() if p == Shard(vd) else p for p in l_pl]  # the rows' layout
+    labels = _as_dtensor(labels, mesh)
+    vdims, lo, n = _vocab_shards(logits, vd)
+    groups = [mesh.get_group(i) for i in vdims]
+
+    def nll(lg, lb):
+        mx = lg.detach().amax(dim=-1)
+        for g in groups:
+            dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=g)
+        se = _SumOver.apply(torch.exp(lg - mx[..., None]).sum(dim=-1), groups)
+        loc = lb.long() - lo
+        hit = (loc >= 0) & (loc < n)
+        tgt = torch.gather(lg, -1, torch.where(hit, loc, 0)[..., None])[..., 0]
+        tgt = _SumOver.apply(torch.where(hit, tgt, 0.0), groups)
+        return torch.log(se) + mx - tgt
+
+    return local_map(_local(nll), out_placements=r_pl, in_placements=(l_pl, r_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+
+
+def reduce_partial(x):
+    """A DTensor's partial sums reduced (those mesh dims replicated); a
+    plain tensor as it is."""
+    if not isinstance(x, DTensor) or not any(isinstance(p, Partial) for p in x.placements):
+        return x
+    return x.redistribute(placements=[Replicate() if isinstance(p, Partial) else p
+                                      for p in x.placements])
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """The identity, whose gradient has its partial sums reduced."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_partial(grad)
+
+
+def reduce_partial_grad(x):
+    """``x``, whose gradient on a mesh has its partial sums reduced; a
+    plain tensor (or one that needs no gradient) as it is."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _ReduceGrad.apply(x)
+
+
+def unshard_dim(x, dim: int):
+    """Gather a DTensor over tensor dim ``dim`` (its shards there become
+    replicated); partial sums are reduced too."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    pls = [Replicate() if isinstance(p, Partial) or (isinstance(p, Shard) and p.dim == dim)
+           else p for p in x.placements]
+    return x if list(pls) == list(x.placements) else x.redistribute(placements=pls)
+
+
+def split_dim(x, dim: int, sizes: Sequence[int]):
+    """``x`` with dim ``dim`` split into ``sizes`` (a reshape); a DTensor
+    whose ``dim`` is sharded over more ranks than ``sizes[0]`` divides
+    into is gathered over that dim first."""
+    dim %= x.ndim
+    if isinstance(x, DTensor):
+        n = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                      if isinstance(p, Shard) and p.dim == dim)
+        if sizes[0] % n:
+            x = unshard_dim(x, dim)
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def _like_layout(src, dst: DTensor, free_dim: int = -1):
+    """``src`` redistributed to ``dst``'s placements (``free_dim`` of
+    ``dst`` replicated instead of sharded)."""
+    pls = [Replicate() if isinstance(p, Shard) and p.dim == free_dim else p
+           for p in dst.placements]
+    if not isinstance(src, DTensor):
+        return distribute_tensor(src, dst.device_mesh, pls, src_data_rank=None)
+    return src.redistribute(placements=pls)
+
+
+def assign(dst, src) -> None:
+    """``dst.copy_(src)``, in place; a DTensor ``dst`` takes ``src`` in its
+    own layout, shard by shard."""
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    dst.to_local().copy_(_like_layout(src, dst).to_local())
+
+
+def write_slots(buf, slots, val) -> None:
+    """``buf.index_copy_(1, slots, val)``, in place, for distinct
+    ``slots``. A DTensor ``buf`` sharded along dim 1 is written by each
+    rank over its own range of slots: every local slot takes the update
+    aimed at it, if any, else keeps its value."""
+    if not isinstance(buf, DTensor):
+        buf.index_copy_(1, slots, val.to(buf.dtype))
+        return
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    slots = slots.to_local() if isinstance(slots, DTensor) else slots
+    local = buf.to_local()
+    val = _like_layout(val, buf, free_dim=1).to_local().to(buf.dtype)
+    if not any(isinstance(p, Shard) and p.dim == 1 for p in buf.placements):
+        local.index_copy_(1, slots, val)
+        return
+    shape, offset = compute_local_shape_and_global_offset(buf.shape, buf.device_mesh,
+                                                          buf.placements)
+    inv = torch.full((buf.shape[1],), -1, dtype=torch.int64, device=local.device)
+    inv.index_copy_(0, slots, torch.arange(slots.numel(), device=local.device))
+    inv = inv[offset[1]:offset[1] + shape[1]]  # update row per local slot, -1: none
+    new = val.index_select(1, torch.clamp(inv, min=0))
+    hit = (inv >= 0).view(1, -1, *([1] * (local.ndim - 2)))
+    local.copy_(torch.where(hit, new, local))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands on a contiguous gradient: a local
+    gradient leaves ``local_map`` as a DTensor shard, and DTensor's views
+    of it (the backward of a reshape) assume a contiguous shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _local(fn: Callable) -> Callable:
+    """``fn`` whose tensor arguments that require grad pass
+    :class:`_ContiguousGrad` first."""
+    def run(*args):
+        return fn(*(_ContiguousGrad.apply(a) if isinstance(a, torch.Tensor) and a.requires_grad
+                    else a for a in args))
+    return run
+
+
+def local_rows(fn: Callable, args: Sequence, rows_out: Sequence[bool]):
+    """``fn(*args)`` on each rank's local rows, for an op without a
+    sharding rule.
+
+    The tensor arguments lead with one shared row dim (the MoE's routing
+    groups). Every mesh dim on which the first DTensor argument is sharded
+    along its rows keeps that sharding, every other mesh dim is
+    replicated; the arguments are redistributed to that layout and ``fn``
+    runs under ``local_map`` on the local tensors, so autograd flows
+    through. Outputs flagged in ``rows_out`` come back in the row layout,
+    the others replicated (each rank computed the same value). Without a
+    DTensor argument, ``fn(*args)`` runs as it is.
+    """
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = dts[0].device_mesh
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in dts[0].placements]
+    repl = [Replicate()] * mesh.ndim
+    in_pl = tuple(rows if isinstance(a, DTensor) else None for a in args)
+    out_pl = tuple(rows if r else repl for r in rows_out)
+    if len(out_pl) == 1:  # fn returns one tensor, not a tuple
+        out_pl = out_pl[0]
+    return local_map(_local(fn), out_placements=out_pl, in_placements=in_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def local_rows_heads(fn: Callable, heads: Sequence, rows: Sequence):
+    """``fn(*heads, *rows)`` on each rank's batch rows and head groups.
+
+    ``heads`` are ``(B, S, H, D)``-like tensors (rows on dim 0, heads on
+    dim 2: attention's q, k and v), ``rows`` lead with the batch rows only
+    (the positions). On each mesh dim the rows stay sharded where the first
+    of ``heads`` is sharded along them; the heads stay sharded where all of
+    ``heads`` are sharded along dim 2 (contiguous shards of q and of k/v
+    then hold matching GQA groups); every other mesh dim is replicated.
+    The output is laid out as the first of ``heads``. Plain ``rows`` (the
+    same global value on every rank) are placed replicated first. Without
+    a DTensor among ``heads``, ``fn`` runs as it is.
+    """
+    dts = [a for a in heads if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*heads, *rows)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = dts[0].device_mesh
+    pls = []
+    for i in range(mesh.ndim):
+        on = [a.placements[i] if isinstance(a, DTensor) else Replicate() for a in heads]
+        if on[0] == Shard(0):
+            pls.append(Shard(0))
+        elif all(p == Shard(2) for p in on):
+            pls.append(Shard(2))
+        else:
+            pls.append(Replicate())
+    row_pls = [p if p == Shard(0) else Replicate() for p in pls]
+    repl = [Replicate()] * mesh.ndim
+    rows = [a if isinstance(a, DTensor) else distribute_tensor(a, mesh, repl, src_data_rank=None)
+            for a in rows]
+    heads = [a if isinstance(a, DTensor) else distribute_tensor(a, mesh, repl, src_data_rank=None)
+             for a in heads]
+    in_pl = tuple([pls] * len(heads) + [row_pls] * len(rows))
+    return local_map(_local(fn), out_placements=pls, in_placements=in_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*heads, *rows)

@@ -25,6 +25,19 @@ A train state is ``{"params": Model, "opt": {"m": {name: tensor}, "step":
 int32 0-d tensor, "v": {...}}, "comp"?: {name: f32 tensor}}``;
 :mod:`repro_torch.models.convert` carries it to and from the reference's
 tree.
+
+On a mesh (pass a ``DeviceMesh`` where a device goes) the state is
+DTensors: the parameters placed by ``param_specs(fsdp=tcfg.fsdp)``, the
+moments and residuals by ``opt_state_specs`` (ZeRO-1). The step is the
+same body: it places a batch by ``batch_specs``; with M > 1 it re-slices
+each microbatch from the global batch and places it again, so every
+microbatch stays sharded over the data axes (the reference re-pins the
+sharding for the same reason). The microbatch gradients are accumulated
+in place as DTensor partial sums and reduced once per step into the
+moments' layout; compression and AdamW then work on local shards. The
+helpers of :mod:`repro_torch.sharding.dtensor` that do this leave plain
+tensors as they are, so a ``torch.device`` keeps the single-device path
+above.
 """
 
 from __future__ import annotations
@@ -41,6 +54,20 @@ from ..models.convert import reference_layout
 from ..models.model import Model, chunked_ce, forward_hidden
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..optim.compression import CompressionState, compress_grads, compression_init
+from ..sharding.dtensor import (
+    add_,
+    check_placed,
+    distribute_batch,
+    distribute_model,
+    full,
+    is_mesh,
+    mesh_device,
+    microbatches,
+    opt_placements,
+    replicating,
+    to_layout,
+    zeros_like,
+)
 
 __all__ = ["TrainConfig", "init_train_state", "make_train_step"]
 
@@ -59,11 +86,38 @@ class TrainConfig:
     opt: AdamWConfig = AdamWConfig()
 
 
+def _init_mesh_state(cfg: ArchConfig, tcfg: TrainConfig, mesh, seed: int) -> Dict[str, Any]:
+    from torch.distributed.tensor import zeros as dzeros
+
+    device = mesh_device(mesh)
+    model = Model(cfg, device=device, generator=torch.Generator(device=device).manual_seed(seed))
+    opl = opt_placements(cfg, model, mesh, tcfg.fsdp)
+    distribute_model(model, cfg, mesh, tcfg.fsdp)
+    names = [n for n, _ in model.named_parameters()]
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+
+    def zeros(dtype):
+        return {n: dzeros(shapes[n], dtype=dtype, device_mesh=mesh, placements=opl[n])
+                for n in names}
+
+    mdt = getattr(torch, tcfg.opt.moment_dtype)
+    state = {"params": model, "opt": {"m": zeros(mdt), "v": zeros(mdt),
+                                      "step": torch.zeros((), dtype=torch.int32, device=device)}}
+    if tcfg.compress_grads:
+        state["comp"] = zeros(torch.float32)
+    return state
+
+
 def init_train_state(
     cfg: ArchConfig, tcfg: TrainConfig, device=None, seed: int = 0
 ) -> Dict[str, Any]:
     """Parameters drawn from ``seed`` (a ``torch.Generator`` on ``device``,
-    the card unless given) and zero optimizer state beside them."""
+    the card unless given) and zero optimizer state beside them. ``device``
+    may be a ``DeviceMesh``: every rank draws the same parameters on the
+    mesh's device and keeps its shards (params by ``param_specs``, moments
+    by ``opt_state_specs``)."""
+    if is_mesh(device):
+        return _init_mesh_state(cfg, tcfg, device, seed)
     device = resolve_device(device)
     model = Model(cfg, device=device, generator=torch.Generator(device=device).manual_seed(seed))
     state = {"params": model, "opt": adamw_init(model, tcfg.opt)}
@@ -89,7 +143,10 @@ def _loss_fn(params: Model, cfg: ArchConfig, tcfg: TrainConfig, batch, n_chunks:
 
 
 def _auto_loss_chunks(cfg: ArchConfig, tcfg: TrainConfig, batch_shape, chips: int = 1) -> int:
-    """Bound live f32 chunk logits to ~256 MB per chip (one chip here)."""
+    """Bound live f32 chunk logits to ~256 MB per chip (``chips``: the
+    mesh's size, one on a single device: on a mesh each rank holds its
+    data rows of the chunk and its vocab shard,
+    :func:`repro_torch.sharding.dtensor.vocab_nll`)."""
     if tcfg.loss_chunks:
         return tcfg.loss_chunks
     b, s = batch_shape
@@ -115,34 +172,42 @@ def make_train_step(
     batch on ``device`` (the card unless given); the state is updated in
     place and returned. Metrics are 0-d f32 tensors on the device:
     ``lm_loss``, ``aux_loss``, ``loss``, ``grad_norm``, ``lr`` (and
-    ``mtp_loss`` for MTP models)."""
-    device = resolve_device(device)
+    ``mtp_loss`` for MTP models). ``device`` may be a ``DeviceMesh``; the
+    state is then :func:`init_train_state`'s on that mesh, a batch may be
+    plain (the same global batch on every rank) or placed already, and the
+    metrics are plain tensors with the global values."""
+    mesh = device if is_mesh(device) else None
+    where = device if mesh is not None else resolve_device(device)
+    chips = mesh.size() if mesh is not None else 1
     m = tcfg.microbatches
 
     def step_fn(state, batch):
         model = state["params"]
-        if model.embed.device.type != device.type:
-            raise ValueError(f"the state lies on {model.embed.device}, the step on {device}")
         names, params = zip(*model.named_parameters())
-        n_chunks = _auto_loss_chunks(cfg, tcfg, batch["tokens"].shape)
-        with torch.enable_grad():
+        check_placed(params, where)
+        batch = distribute_batch(cfg, batch, mesh)
+        n_chunks = _auto_loss_chunks(cfg, tcfg, batch["tokens"].shape, chips=chips)
+        with torch.enable_grad(), replicating(mesh):
             if m == 1:
                 grads, metrics = _grads(model, names, params, cfg, tcfg, batch, n_chunks)
             else:
-                b = batch["tokens"].shape[0]
-                grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                         for n, p in zip(names, params)}
-                for i in range(m):
-                    mb = {k: v.reshape(m, b // m, *v.shape[1:])[i] for k, v in batch.items()}
+                grads = {}
+                for mb in microbatches(cfg, batch, m):
                     g, metrics = _grads(model, names, params, cfg, tcfg, mb, n_chunks)
                     with torch.no_grad():
                         for n in names:
-                            grads[n] += g[n].float() / m
+                            gn = g[n].float() / m
+                            if n not in grads:
+                                grads[n] = zeros_like(gn)
+                            add_(grads[n], gn)
                     del g
+        with torch.no_grad():  # on a mesh: one reduction per step, into the moments' layout
+            grads = {n: to_layout(grads[n], state["opt"]["m"][n]) for n in names}
         if tcfg.compress_grads:
             groups = [names for _, names, _ in reference_layout(model)]
             grads, _ = compress_grads(grads, CompressionState(state["comp"]), groups)
         _, _, opt_metrics = adamw_update(model, grads, state["opt"], tcfg.opt)
+        metrics = {k: full(v) for k, v in metrics.items()}
         return state, dict(metrics, **opt_metrics)
 
     return step_fn

@@ -1,5 +1,5 @@
 """Fault-tolerant training loop (the JAX package's ``train/trainer.py``),
-on one device.
+on one device or on a ``DeviceMesh``.
 
 * **checkpoint/restart**: async atomic checkpoints every N steps; any
   exception inside the step triggers restore-from-latest + replay (the data
@@ -11,11 +11,13 @@ on one device.
   last 50 steps; steps slower than ``straggler_factor`` x median are
   recorded and surfaced.
 
-The reference's ``mesh`` becomes ``device`` (the card unless given). A
+The third argument is a device (the card unless given) or a mesh. A
 restore writes the checkpoint into the state's own tensors
 (:func:`repro_torch.checkpoint.restore_checkpoint`), so a replay allocates
-no second copy of the state. Elastic restores onto another mesh come with
-the multi-device slice.
+no second copy of the state. On a mesh those tensors are DTensors: each
+rank reads the full logical leaves and keeps its own shards, so a job
+saved on one mesh shape resumes on another (the elastic restore,
+``tests/test_torch_elastic.py``); only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 
 from .._device import resolve_device
 from ..checkpoint.checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+from ..sharding.dtensor import is_mesh
 from ..configs.base import ArchConfig, ShapeSpec
 from ..data.pipeline import DataConfig, SyntheticPipeline
 from .train_step import TrainConfig, init_train_state, make_train_step
@@ -62,7 +65,9 @@ class Trainer:
         dcfg: DataConfig = DataConfig(),
         fault_hook: Optional[Callable[[int], None]] = None,
     ):
-        self.cfg, self.shape, self.device = cfg, shape, resolve_device(device)
+        self.cfg, self.shape = cfg, shape
+        self.mesh = device if is_mesh(device) else None
+        self.device = device if self.mesh is not None else resolve_device(device)
         self.tcfg, self.run_cfg, self.dcfg = tcfg, run_cfg, dcfg
         self.fault_hook = fault_hook
         self.step_fn = make_train_step(cfg, tcfg, self.device)
@@ -99,9 +104,10 @@ class Trainer:
         while step < self.run_cfg.steps:
             try:
                 pipeline = SyntheticPipeline(
-                    self.cfg, self.shape, self.dcfg, self.device, start_step=step,
+                    self.cfg, self.shape, self.dcfg,
+                    None if self.mesh else self.device, start_step=step,
                     batch_override=self.run_cfg.batch_override,
-                    seq_override=self.run_cfg.seq_override,
+                    seq_override=self.run_cfg.seq_override, mesh=self.mesh,
                 )
                 for batch in pipeline:
                     if step >= self.run_cfg.steps:
