@@ -125,13 +125,30 @@ the sweep again on the calibrated machine. Phases:
    2 lr), and Llama-3-8B and Mixtral (reduced) served against the
    single-device serve (tokens identical, logits within 1e-4). The
    process group is destroyed at the end of the phase. No kernel lies on
-   this path either.
+   this path either;
+13. the launch analysis (predictions of a model of the card, not
+   measurements): (a) ``python -m repro_torch.launch.dryrun`` children at
+   full width as rank 0 of a fake 256-rank process group on fake
+   ``cuda`` tensors (``DRYRUN_CELLS``: InternLM2-1.8B's train step,
+   Mamba2's 500k decode, Llama-3-8B's 500k cell, which must skip as
+   quadratic), each record free of errors and, where it ran, its argument
+   + temp bytes under the card's 80 GB, then ``python -m
+   repro_torch.launch.roofline`` over the records; (b) ``lower_cell`` /
+   ``analyze`` in a child on a 1-rank fake mesh at phase 11 (b)'s train
+   shape and phase 10 (a)'s decode shape, each count printed against the
+   card's measurement with its ratio: the dot FLOPs against
+   ``_train_bound``'s operations, the train state's argument bytes
+   against phase 11's resident bytes (equal to the byte, checked), the
+   traced peak against phase 11's ``max_memory_allocated``, the roofline
+   bound against phase 11's median step, and the decode roofline bound
+   against ``_serve_bounds`` and phase 10 (a)'s decode ms. No kernel lies
+   on this path either.
 
 The launch counters are set to 0 just before phase 3 and read just after
 phase 5, and again just before and after phase 7: every kernel must have
 been launched on the main path, and K1/K2 on the served path; they are
 set to 0 before phase 9 and must read 0 after it, and again around phases
-10, 11 and 12. A failed
+10, 11, 12 and 13. A failed
 check raises; nothing is caught. The last three lines are a JSON object of
 per-kernel numbers (launches: main path plus served path), the card's name
 and power limit as ``nvidia-smi`` gives them, and the device record.
@@ -2078,6 +2095,161 @@ def phase12_multi_device(smi, analytic, sweep_s, serve, train):
     return {"sweep_sharded_s": dt, "train_ms": times[1] * 1e3, "decode_ms": dec * 1e3}
 
 
+#: phase 13 (a): dry-run cells at the production meshes' full width, each
+#: ``python -m repro_torch.launch.dryrun`` child's arguments (the train
+#: cell on the 256-rank mesh only: with the 512-rank one too the phase took
+#: 192 s, past its ~150 s share; the whole grid runs apart, ``PERF.md``)
+DRYRUN_CELLS = (
+    ("--arch", "internlm2-1.8b", "--shape", "train_4k", "--mesh", "single"),
+    ("--arch", "mamba2-780m", "--shape", "long_500k", "--mesh", "single"),
+    ("--arch", "llama3-8b", "--shape", "long_500k", "--mesh", "single"),
+)
+
+#: phase 13 (b): ``lower_cell``/``analyze`` on a 1-rank fake mesh at the
+#: shapes phases 10 (a) and 11 (b) measure; prints one JSON line
+_DRYRUN_CHILD = r"""
+import json, sys
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.dryrun import analyze, fake_mesh, lower_cell
+from repro_torch.launch.opanalysis import argument_bytes
+from repro_torch.launch.roofline import roofline_terms
+
+mesh = fake_mesh((1, 1), ("data", "model"), "cuda")
+out = {}
+for key, arch, shape, plan in (
+    ("train", "internlm2-1.8b", ShapeSpec("phase11b", 4096, 8, "train"),
+     {"fsdp": False, "microbatches": 4, "remat": "full", "attn_impl": "auto"}),
+    ("decode", "llama3-8b", ShapeSpec("phase10a", 545, 4, "decode"),
+     {"fsdp": False, "microbatches": 1, "remat": "full", "attn_impl": "auto"}),
+):
+    low = lower_cell(get_arch(arch), shape, mesh, plan)
+    rec = analyze(low)
+    rec["state_bytes"] = argument_bytes(low.args[0]) if key == "decode" else \
+        argument_bytes([low.args[0]["params"], low.args[0]["opt"]["m"], low.args[0]["opt"]["v"]])
+    rec["roofline"] = roofline_terms(rec)
+    out[key] = rec
+print(json.dumps(out))
+"""
+
+
+def _dryrun_line(rec, smi):
+    """One phase-13 line of a dry-run record (predictions, not measurements)."""
+    from repro_torch.launch.roofline import roofline_terms
+
+    if rec.get("skipped"):
+        return f"{rec['mesh']}/{rec['arch']}/{rec['shape']}: skipped ({rec['reason']})"
+    mem = rec["memory"]
+    colls = ", ".join(f"{k} {v['bytes']:.4g} B ({v['count']:.0f})"
+                      for k, v in sorted(rec["collectives"].items())) or "none"
+    terms = roofline_terms(rec)
+    return (f"{rec['mesh']}/{rec['arch']}/{rec['shape']} on {rec['chips']} fake ranks: plan "
+            f"{rec['plan']}; trace {rec['trace_s']} s (build {rec['lower_s']} s); per chip "
+            f"dot_flops_expanded {rec['dot_flops_expanded']:.4g}, collectives {colls}; argument "
+            f"{mem['argument_size_in_bytes']} B + temp {mem['temp_size_in_bytes']} B; roofline "
+            f"compute {terms['compute_s']:.4g} s, memory {terms['memory_s']:.4g} s, collective "
+            f"{terms['collective_s']:.4g} s: {terms['dominant']} dominates (H100 constants "
+            f"beside a card reading [{smi}])")
+
+
+def phase13_dryrun(smi, serve, train):
+    """The launch analysis on the card host: (a) the dry run over fake
+    256/512-rank meshes at full width and the roofline over its records,
+    as children; (b) ``lower_cell``/``analyze`` on a 1-rank fake mesh at
+    phases 10 (a) and 11 (b)'s shapes, held against their measurements.
+    Every dry-run number is a prediction."""
+    import os
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, count_params
+    from repro_torch.models.layers import torch_dtype
+
+    say("== phase 13: launch analysis (dry run, op trace, roofline; predictions)")
+
+    out = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PYTHONUNBUFFERED="1")
+    t_phase = time.perf_counter()
+    for args in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                                "--out", str(out), "--force"], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=600)
+        check(child.returncode == 0, f"dryrun {' '.join(args)} exited {child.returncode}: "
+              f"{child.stdout[-2000:]}{child.stderr[-3000:]}")
+        say(f"dryrun {' '.join(args)}: child wall {time.perf_counter() - t0:.1f} s; "
+            + "; ".join(line for line in child.stdout.splitlines() if line.startswith("[")))
+    recs = [json.loads(p.read_text()) for p in sorted(out.glob("*/*.json"))]
+    check(len(recs) == len(DRYRUN_CELLS), f"{len(recs)} dry-run records, want {len(DRYRUN_CELLS)}")
+    for rec in recs:
+        check("error" not in rec, f"dry-run cell {rec['mesh']}/{rec['arch']}/{rec['shape']}: "
+              f"{rec.get('error')}")
+        say("  " + _dryrun_line(rec, smi))
+        if rec["arch"] == "llama3-8b":
+            check(rec["skipped"] and "quadratic" in rec["reason"], "llama3-8b long_500k skips")
+            continue
+        mem = rec["memory"]
+        held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        check(held < 80e9, f"{rec['mesh']}/{rec['arch']}/{rec['shape']}: argument + temp "
+              f"{held} B, not under the card's 80e9 B")
+    child = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline", "--out",
+                            str(out), "--mesh", "single"], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=300)
+    check(child.returncode == 0, f"roofline exited {child.returncode}: {child.stderr[-3000:]}")
+    say("roofline --mesh single (predictions, H100 SXM constants):\n" + child.stdout.strip())
+    say(f"dryrun (a): {time.perf_counter() - t_phase:.1f} s")
+
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", _DRYRUN_CHILD], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, f"phase 13 (b) child exited {child.returncode}: "
+          f"{child.stderr[-3000:]}")
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    say(f"dryrun (b): child wall {time.perf_counter() - t0:.1f} s")
+
+    def pair(what, predicted, measured, unit):
+        say(f"  {what}: predicted {predicted:.6g} {unit} against {measured:.6g} {unit}, ratio "
+            f"{predicted / measured:.4f} [{smi}]")
+
+    tr = got["train"]
+    cfg = get_arch(TRAIN_ARCH)
+    n = count_params(cfg)
+    resident = (torch.finfo(torch_dtype(cfg.dtype)).bits // 8) * n + 2 * 4 * n
+    _, _, ops, _ = _train_bound(cfg, TRAIN_BATCH, 4096)
+    say(f"dryrun (b) train: {TRAIN_ARCH} bf16, {TRAIN_BATCH} x 4096, M = {TRAIN_MICRO}, remat "
+        f"full, 1-rank fake mesh; trace {tr['trace_s']} s")
+    pair("dot_flops_expanded vs _train_bound's operations (no remat)", tr["dot_flops_expanded"],
+         ops, "FLOP")
+    arg = tr["memory"]["argument_size_in_bytes"]
+    say(f"  state argument bytes {tr['state_bytes']} against phase 11's resident {resident}; "
+        f"the rest of the arguments {arg - tr['state_bytes']} B (batch 2 x {TRAIN_BATCH} x 4096 "
+        f"int32 = {2 * TRAIN_BATCH * 4096 * 4} B + the 4-byte step)")
+    check(tr["state_bytes"] == resident, "the train state's argument bytes = phase 11's resident")
+    pair("argument + temp (the trace's peak) vs phase 11's max_memory_allocated",
+         arg + tr["memory"]["temp_size_in_bytes"], train["peak_B"], "B")
+    rt = tr["roofline"]
+    say(f"  roofline: compute {rt['compute_s'] * 1e3:.3f} ms, memory {rt['memory_s'] * 1e3:.3f} "
+        f"ms, collective {rt['collective_s'] * 1e3:.3f} ms ({rt['dominant']})")
+    pair("roofline bound vs phase 11's median step", rt["bound_s"] * 1e3, train["step_ms"], "ms")
+    dc = got["decode"]
+    label, b, s, steps = SERVE_CASES[0]
+    lcfg = get_arch("llama3-8b")
+    _, b_dec, _ = _serve_bounds(Model(lcfg, device="meta"), lcfg, b, s, steps)
+    rd = dc["roofline"]
+    say(f"dryrun (b) decode: llama3-8b bf16, {b} x {s} + one token against a {s + steps}-slot "
+        f"cache, 1-rank fake mesh; trace {dc['trace_s']} s; roofline compute "
+        f"{rd['compute_s'] * 1e3:.4f} ms, memory {rd['memory_s'] * 1e3:.4f} ms ({rd['dominant']})")
+    pair("roofline bound vs _serve_bounds' decode bound (median)", rd["bound_s"] * 1e3,
+         sorted(b_dec)[len(b_dec) // 2] * 1e3, "ms")
+    pair("roofline bound vs phase 10 (a)'s decode ms/step", rd["bound_s"] * 1e3,
+         serve[label]["decode_ms"], "ms")
+    wall = time.perf_counter() - t_phase
+    say(f"phase 13: {wall:.1f} s")
+    return {"wall_s": wall, "records": len(recs)}
+
+
 def main() -> int:
     import torch
 
@@ -2149,6 +2321,12 @@ def main() -> int:
     say(f"multi-device path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
     check(not any(_build.LAUNCHES.values()),
           "a stencil kernel was launched on the multi-device path")
+    _build.reset_launches()  # the launch-analysis path starts here
+    dry = phase13_dryrun(smi, serve, train)
+    torch.cuda.synchronize()
+    say(f"launch-analysis path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
+    check(not any(_build.LAUNCHES.values()),
+          "a stencil kernel was launched on the launch-analysis path")
     say(f"seconds: sweep {sweep_s:.3f}, measure {measure_s:.2f}, fit {fit_s:.2f}, "
         f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, gateway builds "
         + ", ".join(f"{g} {t:.3f}" for g, t in gateway_build_s.items())
@@ -2159,6 +2337,7 @@ def main() -> int:
           f"{train['cli_wall_s']:.3f})"
         + f", mesh: sharded codesign {multi['sweep_sharded_s']:.3f}, train step "
           f"{multi['train_ms'] / 1e3:.3f}, decode/step {multi['decode_ms'] / 1e3:.4f}"
+        + f", dry run {dry['wall_s']:.1f}"
         + f", total {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)

@@ -21,7 +21,11 @@ model)`` meshes of the job's ranks:
 4. an elastic restart: a Trainer on ``(2, 2)`` checkpoints at step 3, a
    Trainer on ``(1, 4)`` resumes from it (the restored state equal to the
    checkpoint's leaves bit for bit) and trains to step 5;
-5. with cards: InternLM2-1.8B at full width in bf16 on ``(2, 2)`` (8 x
+5. the GPipe schedule over a ``(4,)`` stage mesh (S = 4, M = 8 and 4,
+   stage params as DTensors sharded over ``stage``): the output and the
+   gradients of ``sum(out ** 2)`` for ``w``, ``b`` and ``x`` against the
+   sequential loop on one device (1e-5);
+6. with cards: InternLM2-1.8B at full width in bf16 on ``(2, 2)`` (8 x
    4096 tokens in 4 microbatches, remat full), two steps, their
    ``lm_loss`` and ms per step and the peak memory per card.
 
@@ -178,6 +182,40 @@ def check_elastic(device, ckpt):
         f"lm_loss {[round(v, 4) for v in losses]}")
 
 
+def check_pipeline(device):
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.train.pipeline import pipeline_apply
+
+    s, b, d = 4, 16, 32
+    g = torch.Generator().manual_seed(0)
+    w = (torch.randn(s, d, d, generator=g) * 0.2).to(device)
+    bias = (torch.randn(s, d, generator=g) * 0.1).to(device)
+    x = torch.randn(b, d, generator=g).to(device)
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    wl, bl, xl = (t.clone().requires_grad_() for t in (w, bias, x))
+    h = xl
+    for i in range(s):
+        h = stage_fn({"w": wl[i], "b": bl[i]}, h)
+    want = [h.detach(), *torch.autograd.grad((h ** 2).sum(), [wl, bl, xl])]
+    mesh = make_mesh((s,), ("stage",), device.type)
+    for m in (8, 4):
+        params = {k: distribute_tensor(v, mesh, [Shard(0)]).requires_grad_()
+                  for k, v in (("w", w), ("b", bias))}
+        xs = x.clone().requires_grad_()
+        out = pipeline_apply(stage_fn, params, xs, mesh, m)
+        grads = torch.autograd.grad((out ** 2).sum(), [params["w"], params["b"], xs])
+        got = [out.detach(), *(full(t) for t in grads)]
+        err = max(float((a - c).abs().max()) for a, c in zip(got, want))
+        check(all(torch.allclose(a, c, rtol=1e-5, atol=1e-5) for a, c in zip(got, want)),
+              f"pipeline M={m}: output and gradients differ from the sequential loop by {err}")
+        say(f"GPipe S={s}, M={m}: output and gradients for w, b, x = the sequential loop's "
+            f"(max |err| {err:.3g})")
+
+
 def check_full_width(device):
     cfg = get_arch("internlm2-1.8b")
     shape = SHAPES["train_4k"]
@@ -236,6 +274,7 @@ def main() -> int:
         holder = [ckpt]
         dist.broadcast_object_list(holder)
         check_elastic(device, holder[0])
+        check_pipeline(device)
         if args.device == "cuda":
             check_full_width(device)
         say("mesh check OK")

@@ -34,7 +34,13 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
-from ..sharding.dtensor import local_rows_heads, split_dim, write_slots
+from ..sharding.dtensor import (
+    grad_in_layout,
+    local_rows_heads,
+    shard_count,
+    split_dim,
+    write_slots,
+)
 from .layers import Init, apply_rope, dense_init, mrope_rotate, pad_seq, rmsnorm, rmsnorm_init
 
 __all__ = ["Attention", "attn_init", "attention", "NEG_INF"]
@@ -258,7 +264,7 @@ def attention(
             k, v = cache["k"], cache["v"]  # precomputed at prefill
             k_pos = _cache_positions(cache)
             out = _attend(q, k, v, pos_ids, k_pos, "bidir", 0, impl)
-            return _po(params, out, b, s), cache
+            return _po(params, out), cache
         if kv_source is None:
             raise ValueError("cross-attention needs kv_source or a filled cache")
         lk = kv_source.shape[1]
@@ -268,7 +274,7 @@ def attention(
         out = _attend(q, k, v, pos_ids, k_pos, "bidir", 0, impl)
         if cache is not None:
             cache = _write_cache(cache, {"k": k, "v": v}, k_pos)
-        return _po(params, out, b, s), cache
+        return _po(params, out), cache
 
     k = split_dim(x @ params.wk, -1, (kh, dh))
     v = split_dim(x @ params.wv, -1, (kh, dh))
@@ -283,7 +289,7 @@ def attention(
     window = a.window if a.kind == "swa" else 0
     if cache is None:
         out = _attend(q, k, v, pos_ids, pos_ids, mode, window, impl)
-        return _po(params, out, b, s), None
+        return _po(params, out), None
 
     prefill = s > 1
     cache = _write_cache(cache, {"k": k, "v": v}, pos_ids, ring=ring)
@@ -293,12 +299,18 @@ def attention(
     else:
         k_pos = _cache_positions(cache, ring=ring)
         out = _attend(q, cache["k"], cache["v"], pos_ids, k_pos, mode, window, impl)
-    return _po(params, out, b, s), cache
+    return _po(params, out), cache
 
 
-def _po(params, out, b, s):
-    """Output projection over flattened heads."""
-    return out.reshape(b, s, -1) @ params.wo
+def _po(params, out):
+    """Output projection over flattened heads. On a mesh whose ``model``
+    axis the heads do not divide, the merged heads take their gradient
+    back in their own layout: the projection's backward hands it back
+    sharded in pieces that do not split into heads."""
+    merged = out.reshape(*out.shape[:2], -1)
+    if out.shape[2] % shard_count(params.wo, 0):
+        merged = grad_in_layout(merged)
+    return merged @ params.wo
 
 
 # ---------------------------------------------------------------------------
@@ -359,4 +371,4 @@ def _mla_attention(params, cfg, x, positions, cache, impl):
         w = torch.softmax(scores, dim=-1).to(x.dtype)  # x's dtype, as the reference
         ctx_lat = torch.einsum("bhsl,blr->bshr", w, cache["ckv"])
         out = torch.einsum("bshr,rhe->bshe", ctx_lat, wv_b)  # expand W^UV
-    return out.reshape(b, s, h * dv) @ params.wo, cache
+    return _po(params, out), cache

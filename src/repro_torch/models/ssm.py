@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..sharding.dtensor import assign, local_rows, split_dim
+from ..sharding.dtensor import assign, grad_in_layout, local_rows, split_dim
 from .layers import Init, dense_init, pad_seq, rmsnorm
 
 __all__ = ["SSM", "ssm_init", "ssm_apply", "ssd_reference", "ssm_state_shapes"]
@@ -204,7 +204,7 @@ def ssm_apply(
     z = x @ params.wz
     xc = x @ params.wx
     bc_raw = x @ params.wbc
-    dt_raw = x @ params.wdt
+    dt_raw = grad_in_layout(x @ params.wdt)
 
     conv_x_state = cache["conv_x"] if cache is not None else None
     conv_bc_state = cache["conv_bc"] if cache is not None else None

@@ -40,6 +40,14 @@ single-device path does not change by a bit:
   otherwise reach the row-parallel products' backward as a partial sum
   and gather their weights there;
 * :func:`unshard_dim` -- gathers one dim (:func:`split_dim`'s fallback);
+* :func:`grad_in_layout` -- a value whose gradient the backward hands back
+  in a layout its producer's backward cannot take is given that gradient
+  in its own layout: the heads merged before attention's output
+  projection after :func:`split_dim` gathered them (the projection's
+  backward shards the gradient in pieces that do not split into heads),
+  and the SSM's dt projection (torch 2.11's elementwise rules shard its
+  gradient along the sequence, which the product's backward cannot
+  flatten);
 * :func:`split_dim` -- splitting a sharded dim into heads (``view``) has
   no rule when the leading factor does not divide the shard count (GQA's
   kv heads on a wider model axis: llama's 8 on 16, the reduced archs' 2 on
@@ -96,8 +104,10 @@ __all__ = [
     "vocab_nll",
     "reduce_partial",
     "reduce_partial_grad",
+    "grad_in_layout",
     "unshard_dim",
     "split_dim",
+    "shard_count",
     "assign",
     "write_slots",
     "local_rows",
@@ -262,13 +272,27 @@ class _SumOver(torch.autograd.Function):
         return grad, None
 
 
+def _local_extent(x: DTensor):
+    """(local shape, global offset) of this rank's shard of ``x``, as
+    ``torch.chunk`` splits each sharded dim, mesh dim by mesh dim, in
+    plain ints (DTensor's own helper builds index tensors, which a fake
+    tensor mode would turn into host reads)."""
+    shape, offset = list(x.shape), [0] * x.ndim
+    coord = x.device_mesh.get_coordinate()
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            chunk = -(-shape[p.dim] // x.device_mesh.size(i))
+            start = min(coord[i] * chunk, shape[p.dim])
+            offset[p.dim] += start
+            shape[p.dim] = min(chunk, shape[p.dim] - start)
+    return shape, offset
+
+
 def _vocab_shards(x: DTensor, dim: int):
     """(mesh dims that shard ``x`` along ``dim``, this rank's offset along
     ``dim``, its local extent there)."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
     dims = [i for i, p in enumerate(x.placements) if isinstance(p, Shard) and p.dim == dim]
-    shape, offset = compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+    shape, offset = _local_extent(x)
     return dims, offset[dim], shape[dim]
 
 
@@ -368,16 +392,17 @@ def reduce_partial(x):
                                       for p in x.placements])
 
 
-class _ReduceGrad(torch.autograd.Function):
-    """The identity, whose gradient has its partial sums reduced."""
+class _OnGrad(torch.autograd.Function):
+    """The identity, whose gradient passes through ``fn`` first."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, fn):
+        ctx.fn = fn
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_partial(grad)
+        return ctx.fn(grad), None
 
 
 def reduce_partial_grad(x):
@@ -385,7 +410,19 @@ def reduce_partial_grad(x):
     plain tensor (or one that needs no gradient) as it is."""
     if not isinstance(x, DTensor) or not x.requires_grad:
         return x
-    return _ReduceGrad.apply(x)
+    return _OnGrad.apply(x, reduce_partial)
+
+
+def grad_in_layout(x):
+    """``x``, whose gradient on a mesh comes back in ``x``'s own placements,
+    a partial sum's replicated (redistributed if the backward handed it
+    another layout); a plain tensor (or one that needs no gradient) as it
+    is."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    pls = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    return _OnGrad.apply(x, lambda g: g if list(g.placements) == pls
+                         else g.redistribute(placements=pls))
 
 
 def unshard_dim(x, dim: int):
@@ -399,16 +436,23 @@ def unshard_dim(x, dim: int):
     return x if list(pls) == list(x.placements) else x.redistribute(placements=pls)
 
 
+def shard_count(x, dim: int) -> int:
+    """How many shards a DTensor's ``dim`` is split into (1 for a plain
+    tensor)."""
+    if not isinstance(x, DTensor):
+        return 1
+    dim %= x.ndim
+    return math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                     if isinstance(p, Shard) and p.dim == dim)
+
+
 def split_dim(x, dim: int, sizes: Sequence[int]):
     """``x`` with dim ``dim`` split into ``sizes`` (a reshape); a DTensor
     whose ``dim`` is sharded over more ranks than ``sizes[0]`` divides
     into is gathered over that dim first."""
     dim %= x.ndim
-    if isinstance(x, DTensor):
-        n = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
-                      if isinstance(p, Shard) and p.dim == dim)
-        if sizes[0] % n:
-            x = unshard_dim(x, dim)
+    if sizes[0] % shard_count(x, dim):
+        x = unshard_dim(x, dim)
     return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
 
 
@@ -439,16 +483,13 @@ def write_slots(buf, slots, val) -> None:
     if not isinstance(buf, DTensor):
         buf.index_copy_(1, slots, val.to(buf.dtype))
         return
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-
     slots = slots.to_local() if isinstance(slots, DTensor) else slots
     local = buf.to_local()
     val = _like_layout(val, buf, free_dim=1).to_local().to(buf.dtype)
     if not any(isinstance(p, Shard) and p.dim == 1 for p in buf.placements):
         local.index_copy_(1, slots, val)
         return
-    shape, offset = compute_local_shape_and_global_offset(buf.shape, buf.device_mesh,
-                                                          buf.placements)
+    shape, offset = _local_extent(buf)
     inv = torch.full((buf.shape[1],), -1, dtype=torch.int64, device=local.device)
     inv.index_copy_(0, slots, torch.arange(slots.numel(), device=local.device))
     inv = inv[offset[1]:offset[1] + shape[1]]  # update row per local slot, -1: none

@@ -87,10 +87,18 @@ class TrainConfig:
 
 
 def _init_mesh_state(cfg: ArchConfig, tcfg: TrainConfig, mesh, seed: int) -> Dict[str, Any]:
+    device = mesh_device(mesh)
+    model = Model(cfg, device=device, generator=torch.Generator(device=device).manual_seed(seed))
+    return mesh_state(cfg, tcfg, model, mesh)
+
+
+def mesh_state(cfg: ArchConfig, tcfg: TrainConfig, model: Model, mesh) -> Dict[str, Any]:
+    """A train state on ``mesh`` around ``model`` (the same full values on
+    every rank): its parameters placed by ``param_specs`` in place, zero
+    moments (and compression residuals) by ``opt_state_specs``."""
     from torch.distributed.tensor import zeros as dzeros
 
     device = mesh_device(mesh)
-    model = Model(cfg, device=device, generator=torch.Generator(device=device).manual_seed(seed))
     opl = opt_placements(cfg, model, mesh, tcfg.fsdp)
     distribute_model(model, cfg, mesh, tcfg.fsdp)
     names = [n for n, _ in model.named_parameters()]

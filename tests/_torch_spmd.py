@@ -176,6 +176,40 @@ def case_pipeline(w, b, x, microbatches, dtensor):
     return {m: pipeline_apply(stage_fn, params, xt, mesh, m).numpy() for m in microbatches}
 
 
+def case_pipeline_grads(w, b, x, microbatches, dtensor):
+    """Gradients of ``sum(pipeline_apply(...) ** 2)`` with respect to the
+    stage params and the input, for each microbatch count, over a 1-D
+    ("stage",) mesh of the world's ranks; stage params plain or
+    DTensor-sharded (their gradients gathered)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.sharding.dtensor import full
+    from repro_torch.train.pipeline import pipeline_apply
+
+    mesh = _mesh((dist.get_world_size(),), ("stage",))
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    out = {}
+    for m in microbatches:
+        params = {"w": torch.tensor(np.asarray(w, np.float32)),
+                  "b": torch.tensor(np.asarray(b, np.float32))}
+        if dtensor:
+            params = {k: distribute_tensor(v, mesh, [Shard(0)]) for k, v in params.items()}
+        for v in params.values():
+            v.requires_grad_(True)
+        xt = torch.tensor(np.asarray(x, np.float32), requires_grad=True)
+        y = pipeline_apply(stage_fn, params, xt, mesh, m)
+        gw, gb, gx = torch.autograd.grad((y ** 2).sum(), [params["w"], params["b"], xt])
+        out[m] = {"w": full(gw).numpy(), "b": full(gb).numpy(), "x": gx.numpy(),
+                  "out": y.detach().numpy()}
+    return out
+
+
 def _gathered_state(state):
     """(reference path, full numpy leaf) of a train state, in the
     reference's order; every rank joins the gathers, rank 0 keeps them."""
@@ -322,4 +356,5 @@ CASES = {
     "train_step": case_train_step,
     "compressed_psum": case_compressed_psum,
     "pipeline": case_pipeline,
+    "pipeline_grads": case_pipeline_grads,
 }

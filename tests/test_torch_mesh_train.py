@@ -17,7 +17,9 @@ step (params, moments, residuals, gathered to full leaves) within PR
 17's tolerances (rtol 2e-4, atol 2e-5), but at the step's two
 discontinuities (``tests/test_torch_train_step.py``): a gradient at the
 f32 noise floor, and an int8 rounding tie; those are counted and stay
-below 0.1% of the state.
+below 0.1% of the state. A second launch of eight ranks runs InternLM2
+on a ``(1, 8)`` mesh, whose ``model`` axis its heads do not divide,
+against the single-device step.
 """
 
 import textwrap
@@ -151,6 +153,18 @@ def test_mesh_train_step_matches_single_device(tmp_path, subprocess_env):
         if run[0] == "internlm2-1.8b":
             assert "all_gather_into_tensor" not in mesh_out["comms"], mesh_out["comms"]
             assert mesh_out["comms"].get("all_reduce", 0) > 0
+
+
+def test_mesh_train_step_heads_not_dividing_model(tmp_path):
+    """On a (1, 8) mesh the reduced InternLM2's 4 heads (2 kv) do not divide
+    over ``model``: ``split_dim`` gathers them, the attention runs on whole
+    heads, and the merge before the output projection gathers its
+    gradient (``grad_in_layout``). The step equals the single-device step."""
+    run = ("internlm2-1.8b", False, 1, False, "dots")
+    out = launch("train_step", 8, tmp_path, timeout=480, runs=[list(run)], shape=[1, 8],
+                 axes=["data", "model"], seq=SEQ, batch=BATCH)
+    want, want_metrics = _single(*run)
+    _assert_matches(out[0][0]["state"], out[0][0]["metrics"], want, want_metrics)
 
 
 def test_mesh_placements_follow_the_partition_rules():
