@@ -123,16 +123,25 @@ the sweep again on the calibrated machine. Phases:
    within 1e-5 relative, the state within rtol 2e-4 / atol 2e-5 but for
    at most 0.1% of its elements, each within a first step's AdamW move of
    2 lr), and Llama-3-8B and Mixtral (reduced) served against the
-   single-device serve (tokens identical, logits within 1e-4). The
-   process group is destroyed at the end of the phase. No kernel lies on
-   this path either;
+   single-device serve (tokens identical, logits within 1e-4); then, with
+   every spec chosen as if the axes were 4 wide (``mesh_sizes`` patched
+   here, and only here), a GQA arch whose 2 kv heads do not divide that:
+   InternLM2's fsdp step and Llama-3-8B served, its caches' head dims
+   sharded over ``model`` (the decode's scores summed over it), each held
+   alike; and the attention core's split over ``model`` alone
+   (``_attend`` on placed q, k, v: q by heads with k, v whole, whose
+   gradients are partial sums, and k, v by head dims) against the plain
+   core, output and gradients within 1e-6. The process group is destroyed
+   at the end of the phase. No kernel lies on this path either;
 13. the launch analysis (predictions of a model of the card, not
    measurements): (a) ``python -m repro_torch.launch.dryrun`` children at
    full width as rank 0 of a fake 256-rank process group on fake
    ``cuda`` tensors (``DRYRUN_CELLS``: InternLM2-1.8B's train step,
    Mamba2's 500k decode, Llama-3-8B's 500k cell, which must skip as
    quadratic), each record free of errors and, where it ran, its argument
-   + temp bytes under the card's 80 GB, then ``python -m
+   + temp bytes under the card's 80 GB, InternLM2's per-chip dot FLOPs
+   printed beside 6ND x 4/3 / 256 and at most 9e13 (each model rank
+   computes its share of the attention heads), then ``python -m
    repro_torch.launch.roofline`` over the records; (b) ``lower_cell`` /
    ``analyze`` in a child on a 1-rank fake mesh at phase 11 (b)'s train
    shape and phase 10 (a)'s decode shape, each count printed against the
@@ -1871,10 +1880,47 @@ def _state_beyond(on_mesh, single, lr, rtol=2e-4, atol=2e-5):
     return beyond, total, move, other
 
 
+def _heads_core_check(mesh, smi):
+    """Phase 12 (e): the attention core's split over ``model`` on the card
+    (``sharding.dtensor.local_heads``, through ``models.attention
+    ._attend``) against the plain core on the same inputs, outputs and the
+    gradients of q, k and v: q sharded along its heads with k and v whole
+    (each rank slices the kv heads its q heads read; their gradients come
+    back as partial sums over ``model``), and k and v sharded along their
+    head dims, a cache's layout where the kv heads do not divide
+    ``model`` (the scores summed over ``model``, no gather of k or v)."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.attention import _attend
+    from repro_torch.sharding.dtensor import full, mesh_device
+
+    dev = mesh_device(mesh)
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, s, h, kh, d = 2, 64, 8, 2, 32
+    q, k, v = (torch.randn(b, s, n, d, generator=g, device=dev) for n in (h, kh, kh))
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = _attend(*leaves, pos, pos, "causal", 0, "auto")
+    want_g = torch.autograd.grad(want.square().sum(), leaves)
+    for label, kv_pl in (("k, v whole", Replicate()), ("k, v head dims sharded", Shard(3))):
+        placed = [distribute_tensor(t, mesh, [Replicate(), pl]).requires_grad_()
+                  for t, pl in ((q, Shard(2)), (k, kv_pl), (v, kv_pl))]
+        out = full(_attend(*placed, pos, pos, "causal", 0, "auto"))
+        grads = [full(t) for t in torch.autograd.grad(out.square().sum(), placed)]
+        err = max(float((a - c).abs().max()) for a, c in zip([out, *grads], [want, *want_g]))
+        say(f"  attention core on the mesh, q heads sharded, {label} (B {b}, S {s}, {h} q / "
+            f"{kh} kv heads, f32): output and q/k/v gradients max |err| {err:.3g} against "
+            f"the plain core [{smi}]")
+        check(err <= 1e-6, f"attention core on the mesh ({label}): max |err| {err}")
+
+
 def _phase12_sharded_paths(mesh, smi):
     """Phase 12 (e): train steps and serving on the one-rank mesh with
     ``Shard`` kept on its size-1 axes, against one device of the mesh's
-    type."""
+    type; then the same for a GQA arch as if the axes were 4 wide (its 2
+    kv heads do not divide that, so its caches shard their head dims over
+    ``model``), and the attention core's split alone."""
     import torch
     from torch.distributed.tensor import DTensor, Shard
 
@@ -1888,54 +1934,77 @@ def _phase12_sharded_paths(mesh, smi):
     from repro_torch.sharding import dtensor, partition
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
 
-    def keep_shards(spec, m):  # as if every axis were 2 wide: size-1 axes shard too
-        return partition.to_placements(spec, MeshShape(m.mesh_dim_names, (2,) * m.ndim))
-
     tiny = ShapeSpec("tiny", 32, 4, "train")
     dev = torch.device(mesh.device_type)
-    dtensor.to_placements = keep_shards
+
+    def keep_shards(width):  # as if every axis were ``width`` wide: size-1 axes shard too
+        return lambda spec, m: partition.to_placements(
+            spec, MeshShape(m.mesh_dim_names, (width,) * m.ndim))
+
+    def step(name, width):
+        cfg = _moe_ample(get_arch(name).reduced())
+        tcfg = TrainConfig(microbatches=2, remat="dots", fsdp=True)
+        single = init_train_state(cfg, tcfg, device=dev)
+        on_mesh = init_train_state(cfg, tcfg, mesh)
+        params = list(on_mesh["params"].parameters())
+        n_shard = sum(any(isinstance(p, Shard) for p in t.placements) for t in params
+                      if isinstance(t, DTensor))
+        check(n_shard > 0, f"{name}: no parameter is sharded on the size-1 axes")
+        batch = make_batch(cfg, tiny, DataConfig(), 0, dev)
+        _, want = make_train_step(cfg, tcfg, dev)(single, batch)
+        _, got = make_train_step(cfg, tcfg, mesh)(on_mesh, batch)
+        m_err = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
+                    for k in want)
+        beyond, total, move, other = _state_beyond(on_mesh, single, float(want["lr"]))
+        say(f"  sharded step {name} (reduced, f32, fsdp, 2 microbatches, axes as if {width} "
+            f"wide, {n_shard} of {len(params)} parameters sharded): loss "
+            f"{float(got['loss']):.6f} vs single-device {float(want['loss']):.6f}; metrics max "
+            f"relative err {m_err:.3g}; {beyond} of {total} state elements beyond rtol 2e-4 / "
+            f"atol 2e-5 (params: largest excess over 2 lr {move:.3g}; other leaves: largest "
+            f"relative err {other:.3g}) [{smi}]")
+        check(m_err <= 1e-5, f"{name}: sharded step metrics, max relative err {m_err}")
+        check(beyond <= 1e-3 * total and move <= 2e-5 and other == 0.0,
+              f"{name}: sharded step state: {beyond} of {total} beyond, excess {move}, "
+              f"other {other}")
+
+    def serve(name, width):
+        cfg = _moe_ample(get_arch(name).reduced())
+        batch = prompt_batch(cfg, 2, 12, 0, dev)
+        want = generate_timed(Model(cfg, device=dev), cfg, batch, 4, device=dev)
+        got = generate_timed(Model(cfg, device=dev), cfg, batch, 4, mesh=mesh)
+        k_pl = [tuple(layer["mixer"]["k"].placements) for layer in got["caches"]["stack"]
+                if layer is not None and "k" in layer.get("mixer", {})]
+        same = torch.equal(got["tokens"], want["tokens"])
+        l_err = max(float((g - w).abs().max()) for g, w in
+                    zip([got["prefill_logits"], *got["logits"]],
+                        [want["prefill_logits"], *want["logits"]]))
+        say(f"  sharded serve {name} (reduced, f32, 2 x 12 prompt + 3 decode steps, axes as "
+            f"if {width} wide, k cache {k_pl[0] if k_pl else 'none'}): tokens "
+            f"{'identical to' if same else 'differ from'} the single-device serve's; logits "
+            f"max |err| {l_err:.3g} [{smi}]")
+        check(same and l_err <= 1e-4, f"{name}: sharded serve differs from one device")
+        return k_pl
+
+    sizes = partition.mesh_sizes
     try:
+        dtensor.to_placements = keep_shards(2)
         for name in PARITY_ARCHS:
-            cfg = _moe_ample(get_arch(name).reduced())
-            tcfg = TrainConfig(microbatches=2, remat="dots", fsdp=True)
-            single = init_train_state(cfg, tcfg, device=dev)
-            on_mesh = init_train_state(cfg, tcfg, mesh)
-            params = list(on_mesh["params"].parameters())
-            n_shard = sum(any(isinstance(p, Shard) for p in t.placements) for t in params
-                          if isinstance(t, DTensor))
-            check(n_shard > 0, f"{name}: no parameter is sharded on the size-1 axes")
-            batch = make_batch(cfg, tiny, DataConfig(), 0, dev)
-            _, want = make_train_step(cfg, tcfg, dev)(single, batch)
-            _, got = make_train_step(cfg, tcfg, mesh)(on_mesh, batch)
-            m_err = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-6)
-                        for k in want)
-            beyond, total, move, other = _state_beyond(on_mesh, single, float(want["lr"]))
-            say(f"  sharded step {name} (reduced, f32, fsdp, 2 microbatches, {n_shard} of "
-                f"{len(params)} parameters sharded): loss {float(got['loss']):.6f} vs "
-                f"single-device {float(want['loss']):.6f}; metrics max relative err "
-                f"{m_err:.3g}; {beyond} of {total} state elements beyond rtol 2e-4 / atol "
-                f"2e-5 (params: largest excess over 2 lr {move:.3g}; other leaves: largest "
-                f"relative err {other:.3g}) [{smi}]")
-            check(m_err <= 1e-5, f"{name}: sharded step metrics, max relative err {m_err}")
-            check(beyond <= 1e-3 * total and move <= 2e-5 and other == 0.0,
-                  f"{name}: sharded step state: {beyond} of {total} beyond, excess {move}, "
-                  f"other {other}")
-            del single, on_mesh
+            step(name, 2)
         for name in ("llama3-8b", "mixtral-8x22b"):
-            cfg = _moe_ample(get_arch(name).reduced())
-            batch = prompt_batch(cfg, 2, 12, 0, dev)
-            want = generate_timed(Model(cfg, device=dev), cfg, batch, 4, device=dev)
-            got = generate_timed(Model(cfg, device=dev), cfg, batch, 4, mesh=mesh)
-            same = torch.equal(got["tokens"], want["tokens"])
-            l_err = max(float((g - w).abs().max()) for g, w in
-                        zip([got["prefill_logits"], *got["logits"]],
-                            [want["prefill_logits"], *want["logits"]]))
-            say(f"  sharded serve {name} (reduced, f32, 2 x 12 prompt + 3 decode steps): "
-                f"tokens {'identical to' if same else 'differ from'} the single-device "
-                f"serve's; logits max |err| {l_err:.3g} [{smi}]")
-            check(same and l_err <= 1e-4, f"{name}: sharded serve differs from one device")
+            serve(name, 2)
+        dtensor.to_placements = partition.to_placements
+        # GQA: the rules choose every spec as if the axes were 4 wide, so
+        # the 2 kv heads do not divide ``model``: the decode steps read a
+        # cache whose head dims are sharded over it
+        partition.mesh_sizes = lambda m: {a: 4 for a in sizes(m)}
+        step("internlm2-1.8b", 4)
+        k_pl = serve("llama3-8b", 4)
+        check(bool(k_pl) and all(pl[1] == Shard(3) for pl in k_pl),
+              f"llama3-8b as if 4 wide: the k caches are {k_pl}, not head dims over model")
     finally:
         dtensor.to_placements = partition.to_placements
+        partition.mesh_sizes = sizes
+    _heads_core_check(mesh, smi)
 
 
 def phase12_multi_device(smi, analytic, sweep_s, serve, train):
@@ -2162,7 +2231,7 @@ def phase13_dryrun(smi, serve, train):
 
     import torch
 
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import SHAPES, get_arch
     from repro_torch.models import Model, count_params
     from repro_torch.models.layers import torch_dtype
 
@@ -2187,6 +2256,16 @@ def phase13_dryrun(smi, serve, train):
         check("error" not in rec, f"dry-run cell {rec['mesh']}/{rec['arch']}/{rec['shape']}: "
               f"{rec.get('error')}")
         say("  " + _dryrun_line(rec, smi))
+        if (rec["arch"], rec["shape"]) == ("internlm2-1.8b", "train_4k"):
+            # full remat runs the forward twice: 4/3 of 6ND, split over the chips;
+            # the causal S^2 attention comes on top, split over ``model`` too
+            dot = rec["dot_flops_expanded"]
+            ideal = 6 * rec["params"] * SHAPES["train_4k"].tokens * 4 / 3 / rec["chips"]
+            say(f"  {rec['mesh']}/internlm2-1.8b/train_4k per chip: dot_flops_expanded "
+                f"{dot:.4g} beside 6ND x 4/3 / {rec['chips']} = {ideal:.4g} (ratio "
+                f"{dot / ideal:.4f}; at most 9e13 with each model rank's share of the heads)")
+            check(dot <= 9e13, f"internlm2-1.8b train_4k: {dot:.4g} dot FLOPs per chip, over "
+                  "9e13: the attention is not split over model")
         if rec["arch"] == "llama3-8b":
             check(rec["skipped"] and "quadratic" in rec["reason"], "llama3-8b long_500k skips")
             continue

@@ -15,7 +15,9 @@ model)`` meshes of the job's ranks:
    single-device step on rank 0's device: metrics within 1e-5 relative,
    parameters after the step within rtol 2e-4 / atol 2e-5 but for at most
    0.1% of them (a gradient at the f32 noise floor moves AdamW's first
-   step by about +-lr);
+   step by about +-lr); then InternLM2 and Jamba on ``(1, 4)``, whose 2
+   reduced kv heads are fewer than the ``model`` ranks (each rank runs
+   its own q head against the kv head it reads), held alike;
 3. greedy serving of reduced Llama-3-8B and Mixtral on ``(1, 4)`` and
    ``(2, 2)``: tokens equal to the single-device serve's;
 4. an elastic restart: a Trainer on ``(2, 2)`` checkpoints at step 3, a
@@ -107,9 +109,8 @@ def check_compressed_psum(device):
     say(f"compressed_psum over {world} ranks: bit for bit the plain int8 sum")
 
 
-def check_train(device, mesh):
-    runs = [("internlm2-1.8b", False, False), ("internlm2-1.8b", True, True),
-            ("mixtral-8x22b", True, False), ("jamba-v0.1-52b", False, False)]
+def check_train(device, shape, runs):
+    mesh = make_mesh(shape, ("data", "model"), device.type)
     for arch, fsdp, compress in runs:
         cfg = get_arch(arch).reduced()
         tcfg = TrainConfig(microbatches=2, fsdp=fsdp, compress_grads=compress,
@@ -132,7 +133,7 @@ def check_train(device, mesh):
                 total += w_.size
             check(m_err <= 1e-5, f"{arch}: metrics max relative err {m_err}")
             check(off <= 1e-3 * total, f"{arch}: {off} of {total} state elements off")
-            say(f"train step {arch} on (2, 2) (fsdp {fsdp}, compression {compress}): "
+            say(f"train step {arch} on {shape} (fsdp {fsdp}, compression {compress}): "
                 f"metrics max relative err {m_err:.3g}; {off} of {total} state elements beyond "
                 f"rtol 2e-4 / atol 2e-5; first mesh step {step_s * 1e3:.1f} ms")
         dist.barrier()
@@ -268,7 +269,12 @@ def main() -> int:
                                  check=True).stdout.strip().splitlines()
             say("nvidia-smi: " + "; ".join(smi))
         check_compressed_psum(device)
-        check_train(device, make_mesh((2, 2), ("data", "model"), device.type))
+        check_train(device, (2, 2), [("internlm2-1.8b", False, False),
+                                     ("internlm2-1.8b", True, True),
+                                     ("mixtral-8x22b", True, False),
+                                     ("jamba-v0.1-52b", False, False)])
+        check_train(device, (1, 4), [("internlm2-1.8b", False, False),
+                                     ("jamba-v0.1-52b", False, False)])
         check_serve(device)
         ckpt = tempfile.mkdtemp(prefix="mesh_check_") if dist.get_rank() == 0 else None
         holder = [ckpt]

@@ -27,7 +27,14 @@ The process group is process-global: run one dry run per process.
 
     python -m repro_torch.launch.dryrun --tiny --device cpu \\
         --arch internlm2-1.8b --shape train_4k --mesh both
+    python -m repro_torch.launch.dryrun --arch llama3-8b,gemma-7b \\
+        --shape prefill_32k,decode_32k --mesh single --jobs 4
     python -m repro_torch.launch.roofline --out build/dryrun --mesh single
+
+``--arch`` and ``--shape`` take ``all``, one id or a comma-separated
+list; the cells are their product. Each cell's line gives its per-chip
+dot FLOPs, collective bytes, argument + temp bytes and the largest of
+its ``peak_holders``; ``launch.roofline`` reads the dominant term.
 """
 
 from __future__ import annotations
@@ -199,7 +206,7 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, plan: Dict) -> Lowered:
             def prefill(params, batch):
                 b = batch["tokens"].shape[0]
                 caches = distribute_caches(
-                    cfg, init_caches(cfg, b, cache_len, dtype=dtype, device=device), mesh, b)
+                    cfg, init_caches(cfg, b, cache_len, dtype=dtype, device="meta"), mesh, b)
                 with torch.no_grad(), replicating(mesh):
                     hidden, caches, _ = forward_hidden(params, cfg, batch, caches=caches,
                                                        impl=impl)
@@ -210,7 +217,7 @@ def lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, plan: Dict) -> Lowered:
         b = shape.global_batch
         caches = distribute_caches(
             cfg, init_caches(cfg, b, shape.seq_len, dtype=dtype, include_enc=cfg.enc_dec,
-                             device=device), mesh, b)
+                             device="meta"), mesh, b)
         cache_index = torch.zeros((), dtype=torch.int32, device=device)
 
         def decode(params, tokens, caches, cache_index):
@@ -229,7 +236,8 @@ def analyze(lowered: Lowered) -> Dict:
     """Trace ``lowered`` once and return the record's analysis keys: the
     reference's names for what one chip runs and holds (per-chip FLOPs,
     collective operand bytes by kind, the bytes of its arguments, of what
-    it returns and the peak of what it allocates)."""
+    it returns and the peak of what it allocates), and the port's own
+    ``peak_holders`` (what the peak holds, by the op that made it)."""
     t0 = time.time()
     args_bytes = argument_bytes(lowered.args)
     totals, _ = analyze_ops(lowered.fn, *lowered.args, fake_mode=lowered.fake_mode)
@@ -247,6 +255,7 @@ def analyze(lowered: Lowered) -> Dict:
         "collectives": totals.per_collective,
         "collective_bytes": totals.collective_bytes,
         "materialized_bytes": totals.materialized_bytes,
+        "peak_holders": totals.peak_holders,
     }
 
 
@@ -311,8 +320,8 @@ def _out_path(outdir, mesh_kind, arch, shape_name):
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="all", help="arch id or 'all'")
-    ap.add_argument("--shape", default="all", help="shape id or 'all'")
+    ap.add_argument("--arch", default="all", help="arch ids (comma-separated) or 'all'")
+    ap.add_argument("--shape", default="all", help="shape ids (comma-separated) or 'all'")
     ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--tiny", action="store_true", help="reduced configs (CI)")
@@ -336,8 +345,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from ..configs import _register_all  # noqa: F401
 
-    archs = sorted(ARCHS) if args.arch == "all" else [args.arch]
-    shapes = list(SHAPES) if args.shape == "all" else [args.shape]
+    archs = sorted(ARCHS) if args.arch == "all" else args.arch.split(",")
+    shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     overrides = {}
     if args.fsdp:
@@ -396,7 +405,12 @@ def _run_here(cell, args, overrides, device_type) -> Tuple[str, str]:
         json.dump(rec, f, indent=1)
     extra = ""
     if "flops" in rec:
-        extra = f" flops={rec['flops']:.3e} coll={rec.get('collective_bytes', 0):.3e}B"
+        mem = rec["memory"]
+        top = "{}: {}B".format(*rec["peak_holders"][0]) if rec["peak_holders"] else "-"
+        extra = (f" flops={rec['flops']:.3e} dot={rec['dot_flops_expanded']:.3e}"
+                 f" coll={rec['collective_bytes']:.3e}B"
+                 f" arg+temp={mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']:.4g}B"
+                 f" peak_top={top}")
     status = _status(rec)
     return status, f"[{status}] {mesh_kind}/{arch}/{shape_name} ({time.time() - t0:.0f}s){extra}"
 

@@ -21,15 +21,19 @@ a ``TorchDispatchMode`` and sums, per chip:
   group size), of a reduce-scatter its input (result x group size); a
   point-to-point send is a ``collective-permute`` of its buffer;
 * ``bytes_accessed`` -- the bytes of every counted op's tensor inputs
-  and outputs (views left out), as ``cost_analysis()`` sums operands
-  and results;
+  and outputs (views and meta tensors left out), as ``cost_analysis()``
+  sums operands and results;
 * ``materialized_bytes`` -- 2 x the bytes of every storage an op
   allocates (written once, read about once), views and in-place results
   left out: in eager mode every op materializes, which is the
   reference's fusion-boundary proxy;
 * ``peak_bytes`` -- the most bytes of storages allocated during the call
   that were alive at once (each storage tracked from the op that made it
-  to its release), and the bytes of the storages the call returns.
+  to its release; the meta device allocates nothing), and the bytes of
+  the storages the call returns;
+* ``peak_holders`` -- what holds that peak: the live bytes by the op,
+  shape and dtype that made each storage, the largest first, as they
+  stood when the live bytes last grew by 1% (so within 1% of the peak).
 
 **Per chip under DTensor.** The mode returns ``NotImplemented`` for a
 DTensor, so DTensor unwraps it and the mode sees the local op on this
@@ -117,6 +121,7 @@ class OpTotals:
     peak_bytes: int = 0
     output_bytes: int = 0
     alias_bytes: int = 0
+    peak_holders: list = dataclasses.field(default_factory=list)
 
 
 def _host_scratch(out) -> bool:
@@ -145,22 +150,34 @@ class OpCounter(TorchDispatchMode):
         self.totals = OpTotals()
         self._args = {_storage_key(t) for t in arguments}
         self._live: Dict[int, int] = {}
+        self._made: Dict[int, str] = {}
         self._live_bytes = 0
+        self._holders_at = 0
 
     def _release(self, key: int, nbytes: int) -> None:
         if self._live.pop(key, None) is not None:
+            self._made.pop(key, None)
             self._live_bytes -= nbytes
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, name: str) -> None:
+        if t.is_meta:  # shapes only: nothing is allocated
+            return
         st = t.untyped_storage()
         key = st._cdata
         if key in self._args or key in self._live:
             return
         nbytes = st.nbytes()
         self._live[key] = nbytes
+        self._made[key] = f"{name} {tuple(t.shape)} {str(t.dtype).replace('torch.', '')}"
         self._live_bytes += nbytes
         self.totals.materialized_bytes += 2.0 * nbytes
         self.totals.peak_bytes = max(self.totals.peak_bytes, self._live_bytes)
+        if self._live_bytes > 1.01 * self._holders_at:
+            self._holders_at = self._live_bytes
+            held: Dict[str, int] = {}
+            for k, n in self._live.items():
+                held[self._made[k]] = held.get(self._made[k], 0) + n
+            self.totals.peak_holders = sorted(held.items(), key=lambda kv: -kv[1])[:8]
         weakref.finalize(st, self._release, key, nbytes)
 
     def _collective(self, name: str, args) -> None:
@@ -203,9 +220,10 @@ class OpCounter(TorchDispatchMode):
             if packet in _DOTS:
                 self.totals.dot_flops += n
         if not (func.is_view or packet is _aten.lift_fresh):
-            self.totals.bytes_accessed += float(sum(_nbytes(t) for t in tensors_in + tensors_out))
+            self.totals.bytes_accessed += float(
+                sum(_nbytes(t) for t in tensors_in + tensors_out if not t.is_meta))
             for t in tensors_out:
-                self._track(t)
+                self._track(t, name)
         return out
 
     def finish(self, result) -> OpTotals:

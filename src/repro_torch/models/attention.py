@@ -35,10 +35,11 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..sharding.dtensor import (
-    grad_in_layout,
-    local_rows_heads,
-    shard_count,
+    local_heads,
+    shard_like,
     split_dim,
+    sum_grad,
+    sum_partial,
     write_slots,
 )
 from .layers import Init, apply_rope, dense_init, mrope_rotate, pad_seq, rmsnorm, rmsnorm_init
@@ -106,15 +107,19 @@ def _mask_bias(q_pos, k_pos, mode: str, window: int) -> torch.Tensor:
     return torch.where(ok, zero, NEG_INF)
 
 
-def _sdpa(q, k, v, bias, scale):
-    """q: (B,Sq,H,Dk) k: (B,Lk,KH,Dk) v: (B,Lk,KH,Dv) bias: (B,Sq,Lk)."""
+def _sdpa(q, k, v, bias, scale, groups=()):
+    """q: (B,Sq,H,Dk) k: (B,Lk,KH,Dk) v: (B,Lk,KH,Dv) bias: (B,Sq,Lk).
+
+    ``groups``: process groups over which q and k hold slices of the head
+    dims (a rank's share of a mesh's attention): the partial scores are
+    summed over them, and so is the probabilities' gradient."""
     b, sq, h, dk = q.shape
     kh = k.shape[2]
     g = h // kh
     qg = split_dim(q, 2, (kh, g))
-    scores = torch.einsum("bqkgd,blkd->bkgql", qg, k).float() * scale
+    scores = sum_partial(torch.einsum("bqkgd,blkd->bkgql", qg, k).float(), groups) * scale
     scores = scores + bias[:, None, None, :, :]
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    w = sum_grad(torch.softmax(scores, dim=-1).to(v.dtype), groups)
     out = torch.einsum("bkgql,blke->bqkge", w, v)
     return out.reshape(b, sq, h, v.shape[-1])
 
@@ -163,16 +168,18 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale):
 def _attend(q, k, v, q_pos, k_pos, mode, window, impl):
     scale = 1.0 / math.sqrt(q.shape[-1])
     long_seq = max(q.shape[1], k.shape[1]) >= CHUNKED_THRESHOLD
+    chunked = impl == "chunked" or (impl == "auto" and long_seq and q.shape[1] > 1)
 
-    def core(q, k, v, q_pos, k_pos):
-        if impl == "chunked" or (impl == "auto" and long_seq and q.shape[1] > 1):
+    def core(q, k, v, q_pos, k_pos, groups):
+        if chunked:
             return _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale)
-        return _sdpa(q, k, v, _mask_bias(q_pos, k_pos, mode, window), scale)
+        return _sdpa(q, k, v, _mask_bias(q_pos, k_pos, mode, window), scale, groups)
 
-    # on a mesh the core runs on each rank's batch rows and head groups: its
-    # einsums flatten batch and head dims together, which DTensor (torch
-    # 2.11) cannot do when both are sharded
-    return local_rows_heads(core, (q, k, v), (q_pos, k_pos))
+    # on a mesh the core runs on each rank's batch rows and its own q heads
+    # (or its slice of a cache's head dims): its einsums flatten batch and
+    # head dims together, which DTensor (torch 2.11) cannot do when both
+    # are sharded, and GQA's kv heads may be fewer than the model ranks
+    return local_heads(core, q, k, v, (q_pos, k_pos), dims_ok=not chunked)
 
 
 # ---------------------------------------------------------------------------
@@ -304,13 +311,13 @@ def attention(
 
 def _po(params, out):
     """Output projection over flattened heads. On a mesh whose ``model``
-    axis the heads do not divide, the merged heads take their gradient
-    back in their own layout: the projection's backward hands it back
-    sharded in pieces that do not split into heads."""
+    axis the heads do not divide, the merged heads come back whole: they
+    are sliced to the rows of ``wo`` each rank holds first, so the
+    product is row-parallel in the backward too (taken whole, each rank
+    would compute the weight's whole gradient), and their gradient is
+    gathered back whole, where it splits into heads."""
     merged = out.reshape(*out.shape[:2], -1)
-    if out.shape[2] % shard_count(params.wo, 0):
-        merged = grad_in_layout(merged)
-    return merged @ params.wo
+    return shard_like(merged, -1, params.wo, 0) @ params.wo
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ unique slots and dropped ones add zeros.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Tuple
 
 import torch
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..sharding.dtensor import local_rows
+from ..sharding.dtensor import fsdp_gather, gather_slots, local_rows
 from .layers import Init, dense_init, mlp, mlp_init
 
 __all__ = ["MoE", "moe_init", "moe_apply"]
@@ -131,10 +132,15 @@ def moe_apply(params: MoE, cfg: ArchConfig, x: torch.Tensor) -> Tuple[torch.Tens
         (True, True, True, False, True))
     # buf: (G, E, cap, d) -> experts see all groups' slices: (E, G*cap, d)
     ein = buf.transpose(0, 1).reshape(e, g * cap, d)
-    eout = mlp(params.experts, ein, cfg.act)
+    # on a mesh the experts' FSDP shards are gathered where the tokens are
+    # sharded over the data axes, so they stay sharded there
+    experts = SimpleNamespace(**{n: fsdp_gather(getattr(params.experts, n), ein)
+                                 for n in ("up", "gate", "down") if hasattr(params.experts, n)})
+    eout = mlp(experts, ein, cfg.act)
     eout = eout.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
 
-    y = local_rows(lambda *a: _combine_group(*a, tg, k), (eout, slot, keep, flat_g), (True,))
+    # with the experts over ``model`` each rank combines from its own slots
+    y = gather_slots(lambda *a: _combine_group(*a, tg, k), eout, slot, keep, flat_g)
 
     if m.n_shared:
         y = y + mlp(params.shared, xg, cfg.act)

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..sharding.dtensor import assign, grad_in_layout, local_rows, split_dim
+from ..sharding.dtensor import assign, grad_in_layout, local_rows, shard_like, split_dim
 from .layers import Init, dense_init, pad_seq, rmsnorm
 
 __all__ = ["SSM", "ssm_init", "ssm_apply", "ssd_reference", "ssm_state_shapes"]
@@ -204,7 +204,6 @@ def ssm_apply(
     z = x @ params.wz
     xc = x @ params.wx
     bc_raw = x @ params.wbc
-    dt_raw = grad_in_layout(x @ params.wdt)
 
     conv_x_state = cache["conv_x"] if cache is not None else None
     conv_bc_state = cache["conv_bc"] if cache is not None else None
@@ -213,12 +212,14 @@ def ssm_apply(
     xs = F.silu(xs)
     bc = F.silu(bc)
     bm, cm = bc[..., : g * n], bc[..., g * n :]
+    xh = split_dim(xs, -1, (h, p))
 
+    # on a mesh each model rank projects dt for the heads it holds
+    dt_raw = grad_in_layout(x @ shard_like(params.wdt, 1, xh, 2))
     dt = F.softplus(dt_raw.float() + params.dt_bias)  # (B,S,H)
     a = -torch.exp(params.a_log)  # (H,)
     dta = dt * a  # (B,S,H)
 
-    xh = split_dim(xs, -1, (h, p))
     xdt = xh * dt[..., None].to(xh.dtype)
     # broadcast groups to heads
     rep = h // g
@@ -236,10 +237,12 @@ def ssm_apply(
         # keep decays in f32 inside the scan; cast at the consumption points
         return _ssd_chunked(xdt, dta, bmh, cmh, s_cfg.chunk, state0)
 
-    # on a mesh the scan runs on each rank's batch rows: cumsum's backward
-    # flips, and aten.flip has no DTensor rule in every torch; nor does an
-    # einsum whose batch and head dims are both sharded (torch 2.11)
-    y, final = local_rows(scan, (xdt, dta, bmh, cmh, state0), (True, True))
+    # on a mesh the scan runs on each rank's batch rows and its own heads:
+    # cumsum's backward flips, and aten.flip has no DTensor rule in every
+    # torch; nor does an einsum whose batch and head dims are both sharded
+    # (torch 2.11)
+    y, final = local_rows(scan, (xdt, dta, bmh, cmh, state0), (True, True),
+                          heads=(2, 2, 2, 2, 1), heads_out=(2, 1))
 
     y = y + xh * params.d_skip[None, None, :, None].to(xh.dtype)
     y = y.reshape(bsz, seq, d_inner)

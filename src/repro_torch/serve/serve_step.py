@@ -70,7 +70,9 @@ def make_prefill(cfg: ArchConfig, max_len: int = 0, impl: str = "auto", device=N
     def prefill(params: Model, batch: Dict):
         b, s = batch["tokens"].shape
         _check(params, mesh)
-        caches = init_caches(cfg, b, max_len or s, dtype=torch_dtype(cfg.dtype), device=device)
+        # on a mesh each rank allocates its own shards only
+        caches = init_caches(cfg, b, max_len or s, dtype=torch_dtype(cfg.dtype),
+                             device=device if mesh is None else "meta")
         caches = distribute_caches(cfg, caches, mesh, batch_size=b)
         with replicating(mesh):
             hidden, caches, _ = forward_hidden(params, cfg, distribute_batch(cfg, batch, mesh),

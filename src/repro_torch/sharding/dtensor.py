@@ -17,6 +17,16 @@ single-device path does not change by a bit:
   gradient into; it runs under ``local_map`` as a masked lookup in each
   rank's rows of the table, the activations summed over the vocab ranks
   (nothing of the table moves);
+* :func:`gather_slots` -- the MoE's combine reads each token's expert
+  outputs by slot (``torch.gather``); with the experts over ``model``
+  (expert parallelism) each rank reads the slots it holds and the sums
+  are added up over ``model``, as the lookup above, instead of gathering
+  every expert's outputs;
+* :func:`fsdp_gather` -- the MoE's expert products under FSDP: left to
+  its cost model at full width, DTensor gathers the tokens over the data
+  axes rather than the experts' weights, and every data rank then runs
+  every group; where the tokens are sharded over data the weights are
+  gathered first, as FSDP does;
 * :func:`vocab_nll` -- the loss gathers each target's logit along the
   vocab dim (``torch.gather``), which has no rule for a sharded gather
   dim; it runs under ``local_map`` on each rank's vocab shard: the
@@ -42,12 +52,15 @@ single-device path does not change by a bit:
 * :func:`unshard_dim` -- gathers one dim (:func:`split_dim`'s fallback);
 * :func:`grad_in_layout` -- a value whose gradient the backward hands back
   in a layout its producer's backward cannot take is given that gradient
-  in its own layout: the heads merged before attention's output
-  projection after :func:`split_dim` gathered them (the projection's
-  backward shards the gradient in pieces that do not split into heads),
-  and the SSM's dt projection (torch 2.11's elementwise rules shard its
-  gradient along the sequence, which the product's backward cannot
-  flatten);
+  in its own layout: the SSM's dt projection (torch 2.11's elementwise
+  rules shard its gradient along the sequence, which the product's
+  backward cannot flatten);
+* :func:`shard_like` -- a replicated operand sliced, on each rank, to
+  the part another tensor's sharding needs: the SSM's dt projection to
+  the heads the rank holds, and the merged heads to ``wo``'s rows where
+  ``model`` does not divide the heads (so the output projection's
+  backward is row-parallel too, and the merge's gradient comes back
+  whole, where it splits into heads);
 * :func:`split_dim` -- splitting a sharded dim into heads (``view``) has
   no rule when the leading factor does not divide the shard count (GQA's
   kv heads on a wider model axis: llama's 8 on 16, the reduced archs' 2 on
@@ -56,12 +69,16 @@ single-device path does not change by a bit:
   ``gather`` over token slots, ``cumsum`` over routing ranks) have no
   rules, nor the SSM scan's backward (``aten.flip``, from ``cumsum``'s);
   they run under ``local_map`` on each rank's routing groups or batch
-  rows, with that dim kept sharded over the data axes and every other
-  mesh dim replicated;
-* :func:`local_rows_heads` -- the attention core's einsums flatten the
-  batch and head dims together, which DTensor cannot do when both are
-  sharded (torch 2.11); it runs under ``local_map`` on each rank's batch
-  rows and head groups.
+  rows, with that dim kept sharded over the data axes, the SSM's heads
+  kept sharded over ``model`` (:func:`shard_like` splits the projection
+  that feeds them), and every other mesh dim replicated;
+* :func:`local_heads` -- the attention core's einsums flatten the batch
+  and head dims together, which DTensor cannot do when both are sharded
+  (torch 2.11), and GQA's kv heads may be fewer than ``model``'s ranks;
+  it runs under ``local_map`` on each rank's batch rows and its own q
+  heads, against the kv heads those read (sliced on the rank, their
+  gradients partial sums over ``model``), or, against a cache sharded
+  along its head dims, on each rank's slice of those dims.
 
 The train and serve steps run one body on both: :func:`distribute_batch`,
 :func:`distribute_caches`, :func:`microbatches`, :func:`replicating`,
@@ -74,7 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -102,6 +119,8 @@ __all__ = [
     "to_layout",
     "vocab_embedding",
     "vocab_nll",
+    "gather_slots",
+    "fsdp_gather",
     "reduce_partial",
     "reduce_partial_grad",
     "grad_in_layout",
@@ -111,7 +130,10 @@ __all__ = [
     "assign",
     "write_slots",
     "local_rows",
-    "local_rows_heads",
+    "local_heads",
+    "shard_like",
+    "sum_partial",
+    "sum_grad",
 ]
 
 
@@ -171,24 +193,39 @@ def distribute_batch(cfg, batch: Dict[str, torch.Tensor], mesh) -> Dict[str, DTe
             for k, v in batch.items()}
 
 
+def _place_cache(t: torch.Tensor, mesh: DeviceMesh, spec) -> DTensor:
+    """A cache leaf placed by ``spec``; one on the meta device is allocated
+    on the mesh, zeros as ``init_caches`` makes them, each rank its own
+    shard only."""
+    if not t.is_meta:
+        return place(t, mesh, spec)
+    from torch.distributed.tensor import zeros
+
+    return zeros(tuple(t.shape), dtype=t.dtype, device_mesh=mesh,
+                 placements=to_placements(spec, mesh))
+
+
 def distribute_caches(cfg, caches: Dict, mesh, batch_size: int) -> Dict:
     """Caches (``init_caches``' layout, the same on every rank) placed by
     ``cache_specs``, including the long-context fallback that shards the
-    cache length over the data axes when the batch cannot shard.
+    cache length over the data axes when the batch cannot shard. Caches
+    built on the meta device are allocated shard by shard, so no rank
+    holds a whole cache (at full width a prefill_32k cache is 100-480 GB).
     ``mesh=None``: the caches as they are."""
     if mesh is None:
         return caches
     specs = cache_specs(cfg, caches, mesh, batch_size=batch_size)
     layers = [
         None if layer is None else {
-            part: {k: place(t, mesh, specs["stack"][i][part][k]) for k, t in leaves.items()}
+            part: {k: _place_cache(t, mesh, specs["stack"][i][part][k])
+                   for k, t in leaves.items()}
             for part, leaves in layer.items()
         }
         for i, layer in enumerate(caches["stack"])
     ]
     out = {"stack": layers}
     if "enc_out" in caches:
-        out["enc_out"] = place(caches["enc_out"], mesh, specs["enc_out"])
+        out["enc_out"] = _place_cache(caches["enc_out"], mesh, specs["enc_out"])
     return out
 
 
@@ -272,6 +309,38 @@ class _SumOver(torch.autograd.Function):
         return grad, None
 
 
+class _SumGrad(torch.autograd.Function):
+    """The identity in the forward, ``all_reduce(SUM)`` of the gradient over
+    process groups in the backward: every rank of those groups holds the
+    value whole but reads it against its own slice of another operand, so
+    each rank's gradient is a part of the value's."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        for g in ctx.groups:
+            dist.all_reduce(grad, group=g)
+        return grad, None
+
+
+def sum_partial(x: torch.Tensor, groups: Sequence = ()) -> torch.Tensor:
+    """``x``, a partial sum on each rank, summed over ``groups``; its
+    gradient passes as it is (every rank uses the sum whole). No groups:
+    ``x`` as it is."""
+    return _SumOver.apply(x, groups) if groups else x
+
+
+def sum_grad(x: torch.Tensor, groups: Sequence = ()) -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over ``groups`` (see
+    :class:`_SumGrad`). No groups: ``x`` as it is."""
+    return _SumGrad.apply(x, groups) if groups else x
+
+
 def _local_extent(x: DTensor):
     """(local shape, global offset) of this rank's shard of ``x``, as
     ``torch.chunk`` splits each sharded dim, mesh dim by mesh dim, in
@@ -340,6 +409,45 @@ def vocab_embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                      redistribute_inputs=True)(table, ids)
 
 
+def gather_slots(fn: Callable, table, slot, keep, *rest):
+    """``fn(table, slot, keep, *rest)``: a weighted sum of the rows of
+    ``table`` (G, N, d) that ``slot`` (G, T) names along dim 1, ``keep``
+    false for slots to skip (the MoE's combine), on each rank's groups.
+
+    Where ``table`` is sharded along dim 1 (the MoE's expert slots over
+    ``model``: expert parallelism), each rank reads the slots it holds, the
+    others masked out of ``keep``, and the sums are added up over those
+    ranks, as :func:`vocab_embedding` does: no rank gathers the table. The
+    groups keep ``slot``'s layout (the routing's), and so does the result.
+    Otherwise :func:`local_rows` as it is."""
+    if not isinstance(table, DTensor) or Shard(1) not in table.placements:
+        return local_rows(fn, (table, slot, keep, *rest), (True,))
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    sdims = [i for i, p in enumerate(table.placements) if p == Shard(1)]
+    slot = _as_dtensor(slot, mesh)  # the groups' layout is the routing's
+    rows = [Shard(0) if p == Shard(0) and i not in sdims else Replicate()
+            for i, p in enumerate(slot.placements)]
+    t_pl = [Shard(1) if i in sdims else p for i, p in enumerate(rows)]
+    table = table.redistribute(placements=t_pl)
+    _, lo, n = _vocab_shards(table, 1)
+    groups = [mesh.get_group(i) for i in sdims]
+
+    def combine(tbl, sl, kp, *r):
+        loc = sl - lo
+        hit = kp & (loc >= 0) & (loc < n)
+        return _SumOver.apply(fn(tbl, torch.where(hit, loc, 0), hit, *r), groups)
+
+    # each rank's gradient of ``rest`` (the gates) covers its own slots
+    part = [Partial() if i in sdims else p for i, p in enumerate(rows)]
+    n_rest = len(rest)
+    return local_map(_local(combine), out_placements=rows,
+                     in_placements=(t_pl, rows, rows) + (rows,) * n_rest,
+                     in_grad_placements=(t_pl, rows, rows) + (part,) * n_rest,
+                     device_mesh=mesh, redistribute_inputs=True)(table, slot, keep, *rest)
+
+
 def vocab_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per position ``logsumexp(logits) - logits[label]`` over the last
     (vocab) dim (labels < 0 read entry 0; the caller masks them). A
@@ -381,6 +489,22 @@ def vocab_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
     return local_map(_local(nll), out_placements=r_pl, in_placements=(l_pl, r_pl),
                      device_mesh=mesh, redistribute_inputs=True)(logits, labels)
+
+
+def fsdp_gather(w, x):
+    """A DTensor weight gathered over the mesh dims, ``model`` aside, that
+    shard the tokens ``x`` it multiplies: FSDP's gather before a product,
+    so the tokens stay sharded there (the weight's gradient is
+    reduce-scattered back into its layout). Where the tokens are
+    replicated (a decode step's one routing group) the weight stays
+    sharded and the product splits its contraction instead. A plain
+    tensor as it is."""
+    if not isinstance(w, DTensor) or not isinstance(x, DTensor):
+        return w
+    md = _model_dim(w.device_mesh)
+    pls = [Replicate() if i != md and isinstance(xp, Shard) else p
+           for i, (p, xp) in enumerate(zip(w.placements, x.placements))]
+    return w if pls == list(w.placements) else w.redistribute(placements=pls)
 
 
 def reduce_partial(x):
@@ -521,7 +645,28 @@ def _local(fn: Callable) -> Callable:
     return run
 
 
-def local_rows(fn: Callable, args: Sequence, rows_out: Sequence[bool]):
+def _model_dim(mesh: DeviceMesh) -> Optional[int]:
+    """The index of the mesh dim named ``model``, if any."""
+    names = mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def shard_like(w, dim: int, like, like_dim: int):
+    """``w`` sharded along ``dim`` on each mesh dim where ``like`` is
+    sharded along ``like_dim`` and ``w`` is replicated: a slice on each
+    rank, no communication (its gradient is gathered back). So a
+    replicated projection feeds only the heads its rank holds, as GSPMD
+    splits it. Otherwise, and for plain tensors, ``w`` as it is."""
+    if not isinstance(w, DTensor) or not isinstance(like, DTensor):
+        return w
+    like_dim %= like.ndim
+    pls = [Shard(dim) if isinstance(p, Replicate) and lp == Shard(like_dim) else p
+           for p, lp in zip(w.placements, like.placements)]
+    return w if pls == list(w.placements) else w.redistribute(placements=pls)
+
+
+def local_rows(fn: Callable, args: Sequence, rows_out: Sequence[bool],
+               heads: Optional[Sequence] = None, heads_out: Optional[Sequence] = None):
     """``fn(*args)`` on each rank's local rows, for an op without a
     sharding rule.
 
@@ -533,57 +678,140 @@ def local_rows(fn: Callable, args: Sequence, rows_out: Sequence[bool]):
     through. Outputs flagged in ``rows_out`` come back in the row layout,
     the others replicated (each rank computed the same value). Without a
     DTensor argument, ``fn(*args)`` runs as it is.
+
+    ``heads`` names each argument's head dim (``None``: it has none), for
+    an ``fn`` whose heads are independent (the SSM scan): where the mesh
+    dim ``model`` shards the first DTensor argument along its head dim,
+    every argument with a head dim is sharded along it there (the others
+    come in whole) and each output along its dim in ``heads_out``, so each
+    rank runs its own heads.
     """
-    dts = [a for a in args if isinstance(a, DTensor)]
-    if not dts:
+    first = next((i for i, a in enumerate(args) if isinstance(a, DTensor)), None)
+    if first is None:
         return fn(*args)
     from torch.distributed.tensor.experimental import local_map
 
-    mesh = dts[0].device_mesh
-    rows = [Shard(0) if p == Shard(0) else Replicate() for p in dts[0].placements]
+    mesh = args[first].device_mesh
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in args[first].placements]
+    md = _model_dim(mesh)
+    split = (heads is not None and md is not None and heads[first] is not None
+             and args[first].placements[md] == Shard(heads[first]))
+
+    def layout(base, hd):
+        out = list(base)
+        if split:
+            out[md] = Replicate() if hd is None else Shard(hd)
+        return out
+
     repl = [Replicate()] * mesh.ndim
-    in_pl = tuple(rows if isinstance(a, DTensor) else None for a in args)
-    out_pl = tuple(rows if r else repl for r in rows_out)
+    in_pl = tuple(layout(rows, heads[i] if heads else None) if isinstance(a, DTensor) else None
+                  for i, a in enumerate(args))
+    out_pl = tuple(layout(rows if r else repl, heads_out[i] if heads_out else None)
+                   for i, r in enumerate(rows_out))
     if len(out_pl) == 1:  # fn returns one tensor, not a tuple
         out_pl = out_pl[0]
     return local_map(_local(fn), out_placements=out_pl, in_placements=in_pl, device_mesh=mesh,
                      redistribute_inputs=True)(*args)
 
 
-def local_rows_heads(fn: Callable, heads: Sequence, rows: Sequence):
-    """``fn(*heads, *rows)`` on each rank's batch rows and head groups.
+def local_heads(fn: Callable, q, k, v, rows: Sequence, dims_ok: bool = True):
+    """``fn(q, k, v, *rows, groups)``, an attention core, on each rank's
+    batch rows and its share of the attention, as GSPMD splits it.
 
-    ``heads`` are ``(B, S, H, D)``-like tensors (rows on dim 0, heads on
-    dim 2: attention's q, k and v), ``rows`` lead with the batch rows only
-    (the positions). On each mesh dim the rows stay sharded where the first
-    of ``heads`` is sharded along them; the heads stay sharded where all of
-    ``heads`` are sharded along dim 2 (contiguous shards of q and of k/v
-    then hold matching GQA groups); every other mesh dim is replicated.
-    The output is laid out as the first of ``heads``. Plain ``rows`` (the
-    same global value on every rank) are placed replicated first. Without
-    a DTensor among ``heads``, ``fn`` runs as it is.
+    ``q`` is ``(B, Sq, H, Dk)``, ``k`` ``(B, L, KH, Dk)`` and ``v`` ``(B,
+    L, KH, Dv)``; q head ``h`` reads kv head ``h // (H / KH)``. ``rows``
+    lead with the batch rows (the positions). On every mesh dim but
+    ``model`` the rows stay sharded where q is sharded along them, and the
+    rest is replicated. On ``model`` (M ranks, this one r) the rank runs
+
+    * its own q heads ``[r n, min((r + 1) n, H))``, ``n = ceil(H / M)``:
+      ``torch.chunk``'s split, GSPMD's padding where M does not divide H.
+      q comes in sharded along its heads where it is, else whole (as
+      :func:`split_dim` leaves heads M does not divide) and is sliced on
+      the rank; k and v come in sharded alike where their heads are, else
+      whole (gathered, or a cache's layout), and each rank slices the kv
+      heads its q heads read. An operand that comes in whole and is
+      sliced takes back a partial gradient over ``model`` (each rank's
+      covers its slice only), which DTensor reduces, or reduce-scatters
+      into the projection's layout. The output is laid out as q's heads;
+      heads that M does not divide are gathered after;
+    * or, where k and v are sharded along their last dim (a cache whose kv
+      heads M does not divide) and ``dims_ok``, its slice of the head
+      dims: q comes in whole and is sliced alike, ``fn`` sums its partial
+      scores over ``groups`` (the ``model`` group; see :func:`sum_partial`
+      and :func:`sum_grad`) and reads its slice of Dv out, gathered after.
+      No rank gathers the cache.
+
+    ``groups`` is ``()`` but in the second case; a mesh whose ``model``
+    axis is absent, or of size 1 and replicated, runs ``fn`` on whole
+    heads. Without a DTensor among q, k and v, ``fn(q, k, v, *rows, ())``
+    runs as it is.
     """
-    dts = [a for a in heads if isinstance(a, DTensor)]
+    dts = [a for a in (q, k, v) if isinstance(a, DTensor)]
     if not dts:
-        return fn(*heads, *rows)
+        return fn(q, k, v, *rows, ())
     from torch.distributed.tensor.experimental import local_map
 
     mesh = dts[0].device_mesh
-    pls = []
-    for i in range(mesh.ndim):
-        on = [a.placements[i] if isinstance(a, DTensor) else Replicate() for a in heads]
-        if on[0] == Shard(0):
-            pls.append(Shard(0))
-        elif all(p == Shard(2) for p in on):
-            pls.append(Shard(2))
-        else:
-            pls.append(Replicate())
-    row_pls = [p if p == Shard(0) else Replicate() for p in pls]
-    repl = [Replicate()] * mesh.ndim
-    rows = [a if isinstance(a, DTensor) else distribute_tensor(a, mesh, repl, src_data_rank=None)
-            for a in rows]
-    heads = [a if isinstance(a, DTensor) else distribute_tensor(a, mesh, repl, src_data_rank=None)
-             for a in heads]
-    in_pl = tuple([pls] * len(heads) + [row_pls] * len(rows))
-    return local_map(_local(fn), out_placements=pls, in_placements=in_pl, device_mesh=mesh,
-                     redistribute_inputs=True)(*heads, *rows)
+    q, k, v = (_as_dtensor(a, mesh) for a in (q, k, v))
+    rows = [_as_dtensor(a, mesh) for a in rows]
+    base = [Shard(0) if p == Shard(0) else Replicate() for p in q.placements]
+    md = _model_dim(mesh)
+    if md is not None and mesh.size(md) == 1 and all(
+            isinstance(a.placements[md], Replicate) for a in (q, k, v)):
+        md = None
+    if md is None:
+        pls = [base] * 3 + [base] * len(rows)
+        return local_map(_local(lambda *a: fn(*a, ())), out_placements=base,
+                         in_placements=tuple(pls), device_mesh=mesh,
+                         redistribute_inputs=True)(q, k, v, *rows)
+
+    m, r = mesh.size(md), mesh.get_coordinate()[md]
+    h, kh = q.shape[2], k.shape[2]
+    g = h // kh
+
+    def on_model(p):
+        out = list(base)
+        out[md] = p
+        return out
+
+    kv_pl = [k.placements[md], v.placements[md]]
+    split_d = dims_ok and kv_pl == [Shard(3), Shard(3)]
+    if split_d:
+        q_in, kv_in, out_pl = Replicate(), Shard(3), Shard(3)
+        groups = (mesh.get_group(md),)
+    else:
+        q_in = Shard(2) if q.placements[md] == Shard(2) and h % m == 0 else Replicate()
+        kv_in = Shard(2) if kv_pl == [Shard(2), Shard(2)] and kh % m == 0 else Replicate()
+        out_pl, groups = Shard(2), ()
+    n = -(-h // m)
+    lo, hi = min(r * n, h), min((r + 1) * n, h)
+    k_off = r * kh // m if kv_in == Shard(2) else 0  # the local kv shard's first head
+
+    def run(q, k, v, *rows):
+        if split_d:
+            dk = k.shape[-1]
+            return fn(q[..., r * dk:(r + 1) * dk], k, v, *rows, groups)
+        if q_in == Replicate():
+            q = q[:, :, lo:hi]
+        a = min(lo // g, kh - 1)  # the kv heads [a, b) that q heads [lo, hi) read
+        b = (hi - 1) // g + 1 if hi > lo else a + 1
+        if b - a == 1 or (lo % g == 0 and hi - lo == (b - a) * g):
+            k, v = k[:, :, a - k_off:b - k_off], v[:, :, a - k_off:b - k_off]
+        else:  # the q heads cover parts of groups: one kv head per q head
+            idx = torch.arange(lo, hi, device=k.device) // g - k_off
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        out = fn(q, k, v, *rows, ())
+        return F.pad(out, (0, 0, 0, n - out.shape[2])) if out.shape[2] < n else out
+
+    in_pl = ((on_model(q_in), on_model(kv_in), on_model(kv_in))
+             + (on_model(Replicate()),) * len(rows))
+    part = on_model(Partial())
+    grad_pl = ((part if q_in == Replicate() else in_pl[0]),
+               *((part if kv_in == Replicate() else in_pl[1]),) * 2) + in_pl[3:]
+    out = local_map(_local(run), out_placements=on_model(out_pl), in_placements=in_pl,
+                    in_grad_placements=grad_pl, device_mesh=mesh,
+                    redistribute_inputs=True)(q, k, v, *rows)
+    if split_d:
+        return unshard_dim(out, 3)
+    return out if out.shape[2] == h else unshard_dim(out, 2)[:, :, :h]

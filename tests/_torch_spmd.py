@@ -91,7 +91,8 @@ def start_reference(script: str, payload, tmp_path, env, devices: int = 4,
                JAX_PLATFORMS="cpu")
     err = open(os.path.join(run, "err.txt"), "w")
     proc = subprocess.Popen([sys.executable, "-c", script, src, dst], env=env, stdout=err,
-                            stderr=subprocess.STDOUT, cwd=os.path.dirname(HERE))
+                            stderr=subprocess.STDOUT, cwd=os.path.dirname(HERE),
+                            preexec_fn=lambda: os.nice(19))  # as the ranks: the workers first
     started = time.monotonic()
 
     def wait():
@@ -350,7 +351,77 @@ def case_serve(runs, shape, axes):
     return out
 
 
+def case_attention_split(cases):
+    """``models.attention._attend`` on a ``(1, world)`` mesh for each case
+    (label, H, KH, q placement, k/v placement on ``model``; "S2", "S3" or
+    "R"), from numpy-seeded q, k, v: the output and the gradients of
+    ``sum(out ** 2)`` for q, k and v, gathered."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.attention import _attend
+    from repro_torch.sharding.dtensor import full
+
+    mesh = _mesh((1, dist.get_world_size()), ("data", "model"))
+    pl = {"S2": Shard(2), "S3": Shard(3), "R": Replicate()}
+    out = {}
+    for label, h, kh, q_pl, kv_pl in cases:
+        rng = np.random.default_rng(0)
+        b, s, d = 2, 12, 8
+        arrs = [rng.standard_normal((b, s, n, d)).astype(np.float32) for n in (h, kh, kh)]
+        placed = [distribute_tensor(torch.from_numpy(a), mesh, [Replicate(), pl[p]],
+                                    src_data_rank=None).requires_grad_()
+                  for a, p in zip(arrs, (q_pl, kv_pl, kv_pl))]
+        pos = torch.arange(s)[None].expand(b, s)
+        o = _attend(*placed, pos, pos, "causal", 0, "auto")
+        grads = torch.autograd.grad(full(o).square().sum(), placed)
+        out[label] = {"inputs": arrs, "out": full(o).detach().numpy(),
+                      "grads": [full(g).numpy() for g in grads],
+                      "local_heads": o.to_local().shape[2] if o.placements[1] == Shard(2) else None}
+    return out
+
+
+def case_moe_combine():
+    """The MoE's combine (``models.moe._combine_group``) through
+    ``sharding.dtensor.gather_slots`` on a ``(1, world)`` mesh, the expert
+    slots sharded over ``model``: the output, the gradients of the expert
+    outputs and the gates, and the collectives it ran (by op)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.models.moe import _combine_group
+    from repro_torch.sharding.dtensor import full, gather_slots
+
+    mesh = _mesh((1, dist.get_world_size()), ("data", "model"))
+    rng = np.random.default_rng(0)
+    g, e, cap, d, tg, k = 2, 8, 3, 5, 6, 2
+    table = rng.standard_normal((g, e * cap, d)).astype(np.float32)
+    slot = rng.integers(0, e * cap, (g, tg * k))
+    keep = rng.random((g, tg * k)) < 0.8
+    gates = rng.random((g, tg * k)).astype(np.float32)
+    repl = [Replicate(), Replicate()]
+    tbl = distribute_tensor(torch.from_numpy(table), mesh, [Replicate(), Shard(1)],
+                            src_data_rank=None).requires_grad_()
+    gt = distribute_tensor(torch.from_numpy(gates), mesh, repl,
+                           src_data_rank=None).requires_grad_()
+    sl, kp = (distribute_tensor(torch.from_numpy(a), mesh, repl, src_data_rank=None)
+              for a in (slot, keep))
+    with CommDebugMode() as comm:
+        y = gather_slots(lambda *a: _combine_group(*a, tg, k), tbl, sl, kp, gt)
+        grads = torch.autograd.grad(y.square().sum(), [tbl, gt])
+    return {"inputs": (table, slot, keep, gates), "out": full(y).detach().numpy(),
+            "grads": [full(t).numpy() for t in grads],
+            "comms": {str(op).split(".")[-1]: n for op, n in comm.get_comm_counts().items()}}
+
+
 CASES = {
+    "moe_combine": case_moe_combine,
+    "attention_split": case_attention_split,
     "serve": case_serve,
     "elastic": case_elastic,
     "train_step": case_train_step,

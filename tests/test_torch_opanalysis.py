@@ -14,7 +14,8 @@ product) on the first call of an op signature, when DTensor's sharding
 propagation runs it at the global shape, and on later calls; collective
 operand bytes by kind on a fake 4-rank group, with the reference's
 all-gather / reduce-scatter operand semantics
-(``hloanalysis.py:266-272``); and the peak of live storages.
+(``hloanalysis.py:266-272``); the peak of live storages; and meta
+tensors, which count no bytes.
 """
 
 import json
@@ -167,6 +168,22 @@ def test_peak_and_materialized_bytes():
     assert t.materialized_bytes == 2 * 5 * 4096
     assert t.output_bytes == 3 * 4096 and t.alias_bytes == 4096
     assert argument_bytes({"a": x, "b": [x, x.view(2, 512)]}) == 4096
+
+
+def test_meta_tensors_are_neither_read_nor_held():
+    """A meta tensor holds a shape and no bytes (a cache drawn on the meta
+    device before it is placed shard by shard): its ops add nothing to
+    ``bytes_accessed``, ``materialized_bytes`` or the peak."""
+    x = torch.zeros(1024)  # 4096 B
+
+    def fn(x):
+        big = torch.zeros(1 << 30, device="meta") + 1  # 4 GiB, were it real
+        return x * 2, big.shape
+
+    t, _ = analyze_ops(fn, x)
+    assert t.bytes_accessed == 2 * 4096
+    assert t.materialized_bytes == 2 * 4096
+    assert t.peak_bytes == 4096
 
 
 #: a child on a fake 16-rank process group: per-chip FLOPs of a DTensor
