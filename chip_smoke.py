@@ -122,8 +122,11 @@ the sweep again on the calibrated machine. Phases:
    of the six reduced archs against the single-device card step (metrics
    within 1e-5 relative, the state within rtol 2e-4 / atol 2e-5 but for
    at most 0.1% of its elements, each within a first step's AdamW move of
-   2 lr), and Llama-3-8B and Mixtral (reduced) served against the
-   single-device serve (tokens identical, logits within 1e-4); then, with
+   2 lr), and Llama-3-8B, Mixtral, Whisper and Qwen2-VL (reduced) served
+   against the single-device serve (tokens identical, logits within 1e-4),
+   the position ids of every stack call in those steps and serves placed
+   as the tokens' rows (``Shard(0)`` over data, replicated over model,
+   never a plain tensor); then, with
    every spec chosen as if the axes were 4 wide (``mesh_sizes`` patched
    here, and only here), a GQA arch whose 2 kv heads do not divide that:
    InternLM2's fsdp step and Llama-3-8B served, its caches' head dims
@@ -1922,7 +1925,7 @@ def _phase12_sharded_paths(mesh, smi):
     kv heads do not divide that, so its caches shard their head dims over
     ``model``), and the attention core's split alone."""
     import torch
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeSpec
@@ -1930,6 +1933,7 @@ def _phase12_sharded_paths(mesh, smi):
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.serve import prompt_batch
     from repro_torch.models import Model
+    from repro_torch.models import model as model_mod
     from repro_torch.serve import generate_timed
     from repro_torch.sharding import dtensor, partition
     from repro_torch.train import TrainConfig, init_train_state, make_train_step
@@ -1985,13 +1989,30 @@ def _phase12_sharded_paths(mesh, smi):
         check(same and l_err <= 1e-4, f"{name}: sharded serve differs from one device")
         return k_pl
 
+    # the position ids of every stack call on the mesh: made in the
+    # tokens' layout (rows over data, replicated over model), never plain
+    ids, stack_apply = [], model_mod.stack_apply
+
+    def recording(stack, cfg, x, *, positions, **kw):
+        if isinstance(x, DTensor):
+            ids.append(str(tuple(positions.placements)) if isinstance(positions, DTensor)
+                       else "plain")
+        return stack_apply(stack, cfg, x, positions=positions, **kw)
+
     sizes = partition.mesh_sizes
     try:
         dtensor.to_placements = keep_shards(2)
+        model_mod.stack_apply = recording
         for name in PARITY_ARCHS:
             step(name, 2)
-        for name in ("llama3-8b", "mixtral-8x22b"):
+        for name in ("llama3-8b", "mixtral-8x22b", "whisper-medium", "qwen2-vl-2b"):
             serve(name, 2)
+        model_mod.stack_apply = stack_apply
+        rows = str((Shard(0), Replicate()))
+        say(f"  position ids of {len(ids)} stack calls (the six steps, four serves): "
+            f"{sorted(set(ids))}, the tokens' rows layout {rows} [{smi}]")
+        check(bool(ids) and set(ids) == {rows}, f"position ids placed {sorted(set(ids))}, "
+              f"not as the tokens' rows {rows}")
         dtensor.to_placements = partition.to_placements
         # GQA: the rules choose every spec as if the axes were 4 wide, so
         # the 2 kv heads do not divide ``model``: the decode steps read a
@@ -2004,6 +2025,7 @@ def _phase12_sharded_paths(mesh, smi):
     finally:
         dtensor.to_placements = partition.to_placements
         partition.mesh_sizes = sizes
+        model_mod.stack_apply = stack_apply
     _heads_core_check(mesh, smi)
 
 

@@ -34,7 +34,8 @@ The process group is process-global: run one dry run per process.
 ``--arch`` and ``--shape`` take ``all``, one id or a comma-separated
 list; the cells are their product. Each cell's line gives its per-chip
 dot FLOPs, collective bytes, argument + temp bytes and the largest of
-its ``peak_holders``; ``launch.roofline`` reads the dominant term.
+its ``peak_holders`` and of its ``collective_ops``; ``launch.roofline``
+reads the dominant term.
 """
 
 from __future__ import annotations
@@ -237,7 +238,9 @@ def analyze(lowered: Lowered) -> Dict:
     reference's names for what one chip runs and holds (per-chip FLOPs,
     collective operand bytes by kind, the bytes of its arguments, of what
     it returns and the peak of what it allocates), and the port's own
-    ``peak_holders`` (what the peak holds, by the op that made it)."""
+    ``peak_holders`` (what the peak holds, by the op that made it),
+    ``collective_ops`` and ``dot_ops`` (the collectives by operand, the
+    products by output)."""
     t0 = time.time()
     args_bytes = argument_bytes(lowered.args)
     totals, _ = analyze_ops(lowered.fn, *lowered.args, fake_mode=lowered.fake_mode)
@@ -252,7 +255,9 @@ def analyze(lowered: Lowered) -> Dict:
             "alias_size_in_bytes": totals.alias_bytes,
         },
         "dot_flops_expanded": totals.dot_flops,
+        "dot_ops": totals.dot_ops,
         "collectives": totals.per_collective,
+        "collective_ops": totals.collective_ops,
         "collective_bytes": totals.collective_bytes,
         "materialized_bytes": totals.materialized_bytes,
         "peak_holders": totals.peak_holders,
@@ -407,10 +412,12 @@ def _run_here(cell, args, overrides, device_type) -> Tuple[str, str]:
     if "flops" in rec:
         mem = rec["memory"]
         top = "{}: {}B".format(*rec["peak_holders"][0]) if rec["peak_holders"] else "-"
+        coll = "{} x{}: {:.4g}B".format(*rec["collective_ops"][0]) if rec["collective_ops"] \
+            else "-"
         extra = (f" flops={rec['flops']:.3e} dot={rec['dot_flops_expanded']:.3e}"
                  f" coll={rec['collective_bytes']:.3e}B"
                  f" arg+temp={mem['argument_size_in_bytes'] + mem['temp_size_in_bytes']:.4g}B"
-                 f" peak_top={top}")
+                 f" peak_top={top} coll_top={coll}")
     status = _status(rec)
     return status, f"[{status}] {mesh_kind}/{arch}/{shape_name} ({time.time() - t0:.0f}s){extra}"
 

@@ -12,6 +12,8 @@ a ``TorchDispatchMode`` and sums, per chip:
   ``baddbmm``, the fused attention ops), with the FLOP formulas of
   ``torch.utils.flop_counter``'s registry; a convolution is not a dot, as
   in the reference;
+* ``dot_ops`` -- the same by op and output shape: ``[label, count,
+  FLOPs]``, the most FLOPs first (which products a count is made of);
 * ``flops`` -- every op that registry knows (dots, convolutions,
   attention); it stands in for ``cost_analysis()["flops"]``;
 * ``per_collective`` / ``collective_bytes`` -- operand bytes by the
@@ -20,6 +22,9 @@ a ``TorchDispatchMode`` and sums, per chip:
   and ``c10d`` ops; the operand of an all-gather is its input (result /
   group size), of a reduce-scatter its input (result x group size); a
   point-to-point send is a ``collective-permute`` of its buffer;
+* ``collective_ops`` -- the same operands by (kind, shape, dtype):
+  ``[label, count, bytes]``, the most bytes first, so a record names the
+  collectives that move the most (a gather of the logits, of a weight);
 * ``bytes_accessed`` -- the bytes of every counted op's tensor inputs
   and outputs (views and meta tensors left out), as ``cost_analysis()``
   sums operands and results;
@@ -118,6 +123,8 @@ class OpTotals:
     materialized_bytes: float = 0.0
     bytes_accessed: float = 0.0
     per_collective: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
+    collective_ops: list = dataclasses.field(default_factory=list)
+    dot_ops: list = dataclasses.field(default_factory=list)
     peak_bytes: int = 0
     output_bytes: int = 0
     alias_bytes: int = 0
@@ -133,6 +140,11 @@ def _host_scratch(out) -> bool:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _label(name: str, t: torch.Tensor) -> str:
+    """``name (shape) dtype``, as records name a tensor."""
+    return f"{name} {tuple(t.shape)} {str(t.dtype).replace('torch.', '')}"
 
 
 def _storage_key(t: torch.Tensor) -> int:
@@ -153,6 +165,8 @@ class OpCounter(TorchDispatchMode):
         self._made: Dict[int, str] = {}
         self._live_bytes = 0
         self._holders_at = 0
+        self._coll_ops: Dict[str, list] = {}
+        self._dot_ops: Dict[str, list] = {}
 
     def _release(self, key: int, nbytes: int) -> None:
         if self._live.pop(key, None) is not None:
@@ -168,7 +182,7 @@ class OpCounter(TorchDispatchMode):
             return
         nbytes = st.nbytes()
         self._live[key] = nbytes
-        self._made[key] = f"{name} {tuple(t.shape)} {str(t.dtype).replace('torch.', '')}"
+        self._made[key] = _label(name, t)
         self._live_bytes += nbytes
         self.totals.materialized_bytes += 2.0 * nbytes
         self.totals.peak_bytes = max(self.totals.peak_bytes, self._live_bytes)
@@ -183,11 +197,16 @@ class OpCounter(TorchDispatchMode):
     def _collective(self, name: str, args) -> None:
         kind, pos = _COLLECTIVES[name]
         arg = args[pos] if pos < len(args) else args[0]
-        nbytes = float(sum(_nbytes(t) for t in tree_leaves(arg) if isinstance(t, torch.Tensor)))
+        operands = [t for t in tree_leaves(arg) if isinstance(t, torch.Tensor)]
+        nbytes = float(sum(_nbytes(t) for t in operands))
         rec = self.totals.per_collective.setdefault(kind, {"count": 0.0, "bytes": 0.0})
         rec["count"] += 1
         rec["bytes"] += nbytes
         self.totals.collective_bytes += nbytes
+        for t in operands:
+            op = self._coll_ops.setdefault(_label(kind, t), [0, 0.0])
+            op[0] += 1
+            op[1] += float(_nbytes(t))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -219,6 +238,9 @@ class OpCounter(TorchDispatchMode):
             self.totals.flops += n
             if packet in _DOTS:
                 self.totals.dot_flops += n
+                op = self._dot_ops.setdefault(_label(name, tensors_out[0]), [0, 0.0])
+                op[0] += 1
+                op[1] += float(n)
         if not (func.is_view or packet is _aten.lift_fresh):
             self.totals.bytes_accessed += float(
                 sum(_nbytes(t) for t in tensors_in + tensors_out if not t.is_meta))
@@ -228,7 +250,11 @@ class OpCounter(TorchDispatchMode):
 
     def finish(self, result) -> OpTotals:
         """Record the bytes of the storages ``result`` holds (all of them,
-        and those that alias an argument)."""
+        and those that alias an argument), and the collectives and the
+        products by shape."""
+        for field, ops in (("collective_ops", self._coll_ops), ("dot_ops", self._dot_ops)):
+            setattr(self.totals, field, sorted(([k, c, v] for k, (c, v) in ops.items()),
+                                               key=lambda e: (-e[2], e[0])))
         seen = set()
         for t in _tensors_of(result):
             key = _storage_key(t)

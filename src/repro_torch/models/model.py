@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
-from ..sharding.dtensor import vocab_embedding, vocab_nll
+from ..sharding.dtensor import fsdp_gather, rows_like, vocab_embedding, vocab_nll
 from .layers import Init, dense_init, embed_init, rmsnorm, rmsnorm_init, sinusoidal_positions, torch_dtype
 from .transformer import block_apply, block_init, stack_apply, stack_init
 
@@ -105,9 +105,11 @@ class Model(nn.Module):
 # Positions
 # ---------------------------------------------------------------------------
 def mrope_positions(cfg: ArchConfig, batch: int, n_vision: int, n_text: int, offset=0,
-                    device=None) -> torch.Tensor:
+                    device=None, like=None) -> torch.Tensor:
     """Qwen2-VL M-RoPE ids (B, 3, S): vision patches get (t=0, h, w) grid
-    ids; text gets synchronized ids continuing after the grid extent."""
+    ids; text gets synchronized ids continuing after the grid extent.
+    ``like`` (a (B, ...) tensor) donates its rows' layout
+    (:func:`_text_positions`)."""
     g = max(1, int(math.ceil(math.sqrt(max(n_vision, 1)))))
     vis_i = torch.arange(n_vision, device=device)
     vis = torch.stack([torch.zeros_like(vis_i), vis_i // g, vis_i % g])  # (3, Nv)
@@ -115,7 +117,11 @@ def mrope_positions(cfg: ArchConfig, batch: int, n_vision: int, n_text: int, off
     txt_i = start + torch.arange(n_text, device=device) + _offset(offset, device)
     txt = txt_i.expand(3, n_text)  # (3, Nt)
     pos = torch.cat([vis, txt], dim=1)  # (3, S)
-    return pos[None].expand(batch, 3, pos.shape[1])
+
+    def rows(lo, n):
+        return pos[None].expand(n, 3, pos.shape[1])
+
+    return rows(0, batch) if like is None else rows_like(rows, like)
 
 
 def _offset(offset, device):
@@ -127,14 +133,26 @@ def _offset(offset, device):
     return int(offset)
 
 
-def _text_positions(batch: int, seq: int, offset, device) -> torch.Tensor:
-    """Position ids (B, S). The reference adds a ``like=`` array here only
-    to hand its sharding to the ids under GSPMD; the port does not shard,
-    so it has no such argument."""
+def _text_positions(like: torch.Tensor, seq: int, offset, device) -> torch.Tensor:
+    """Position ids (B, S) for the B rows of ``like`` (the tokens), which
+    donates its layout, as the reference's ``like=`` hands the tokens'
+    sharding to the ids: on a mesh the ids are a DTensor sharded over the
+    rows as ``like`` is, each rank making its own rows only, so what is
+    built from them (the rope angles, the learned lookup, the masks) runs
+    on the rank's rows. Made bare they would count as replicated, and all
+    of that would run at the global batch on every rank."""
     off = _offset(offset, device)
-    pos = torch.arange(seq, device=device)[None, :]
-    pos = pos + (off.reshape(-1, 1) if isinstance(off, torch.Tensor) else off)
-    return pos.expand(batch, seq)
+
+    def rows(lo, n):
+        pos = torch.arange(seq, device=device)[None, :]
+        if isinstance(off, torch.Tensor):
+            o = off.reshape(-1, 1)
+            pos = pos + (o[lo:lo + n] if o.shape[0] > 1 else o)
+        else:
+            pos = pos + off
+        return pos.expand(n, seq)
+
+    return rows_like(rows, like)
 
 
 # ---------------------------------------------------------------------------
@@ -151,8 +169,13 @@ def _embed(cfg, params, tokens):
 
 
 def _head(cfg, params, x):
+    # on a mesh under FSDP the weight is gathered over the data axes that
+    # shard the rows, so the logits keep their rows there and their vocab
+    # over ``model`` (left to itself DTensor splits the contraction over
+    # data: logits of every row, partial sums that the loss then gathers
+    # to the full vocab)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ w
+    return x @ fsdp_gather(w, x)
 
 
 def _check_device(params: Model, tokens: torch.Tensor) -> None:
@@ -200,7 +223,7 @@ def forward_hidden(
             enc_in = batch["frontend"].to(x.dtype)
             ns = enc_in.shape[1]
             enc_in = enc_in + sinusoidal_positions(ns, cfg.d_model, dev)[None].to(x.dtype)
-            enc_pos = _text_positions(b, ns, 0, dev)
+            enc_pos = _text_positions(enc_in, ns, 0, dev)
             enc_out, _, _ = stack_apply(
                 params.encoder, cfg, enc_in, positions=enc_pos, mode="bidir",
                 impl=impl, remat=remat,
@@ -212,17 +235,18 @@ def forward_hidden(
     if cfg.frontend == "vision" and batch.get("frontend") is not None:
         vis = batch["frontend"].to(x.dtype)
         x = torch.cat([vis, x], dim=1)
-        positions = mrope_positions(cfg, b, vis.shape[1], s, offset=offset, device=dev)
+        positions = mrope_positions(cfg, b, vis.shape[1], s, offset=offset, device=dev,
+                                    like=tokens)
     elif cfg.rope == "mrope":
         # text-only step (e.g. decode): all three ids follow the text id
         nv = cfg.n_frontend_tokens
         g = max(1, int(math.ceil(math.sqrt(max(nv, 1)))))
-        txt = _text_positions(b, s, offset, dev) + g
+        txt = _text_positions(tokens, s, offset, dev) + g
         positions = txt[:, None, :].expand(b, 3, s)
     else:
         positions = batch.get("positions")
         if positions is None:
-            positions = _text_positions(b, s, offset, dev)
+            positions = _text_positions(tokens, s, offset, dev)
 
     if cfg.rope == "learned":
         slots = torch.clamp(positions, 0, LEARNED_POS_MAX - 1)

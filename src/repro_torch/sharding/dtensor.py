@@ -82,9 +82,10 @@ single-device path does not change by a bit:
 
 The train and serve steps run one body on both: :func:`distribute_batch`,
 :func:`distribute_caches`, :func:`microbatches`, :func:`replicating`,
-:func:`check_placed`, :func:`zeros_like`, :func:`add_`, :func:`to_layout`
-and :func:`full` place, slice, accumulate and gather DTensors and leave
-plain tensors (``mesh=None``) as the single-device path has them.
+:func:`rows_like`, :func:`check_placed`, :func:`zeros_like`,
+:func:`add_`, :func:`to_layout` and :func:`full` place, make, slice,
+accumulate and gather DTensors and leave plain tensors (``mesh=None``)
+as the single-device path has them.
 """
 
 from __future__ import annotations
@@ -113,6 +114,7 @@ __all__ = [
     "distribute_caches",
     "microbatches",
     "replicating",
+    "rows_like",
     "check_placed",
     "zeros_like",
     "add_",
@@ -246,8 +248,10 @@ def microbatches(cfg, batch: Dict[str, torch.Tensor], m: int) -> Iterator[Dict]:
 
 def replicating(mesh):
     """On a mesh, DTensor's ``implicit_replication``: the plain tensors
-    the model makes (positions, masks, rope tables) hold the same global
-    values on every rank and count as replicated. Else nothing."""
+    the model makes (constants, frequency tables, cache slot ids) hold the
+    same global values on every rank and count as replicated; position
+    ids are made in the tokens' layout instead (:func:`rows_like`). Else
+    nothing."""
     if mesh is None:
         return contextlib.nullcontext()
     from torch.distributed.tensor.experimental import implicit_replication
@@ -342,19 +346,42 @@ def sum_grad(x: torch.Tensor, groups: Sequence = ()) -> torch.Tensor:
 
 
 def _local_extent(x: DTensor):
-    """(local shape, global offset) of this rank's shard of ``x``, as
-    ``torch.chunk`` splits each sharded dim, mesh dim by mesh dim, in
-    plain ints (DTensor's own helper builds index tensors, which a fake
-    tensor mode would turn into host reads)."""
-    shape, offset = list(x.shape), [0] * x.ndim
-    coord = x.device_mesh.get_coordinate()
-    for i, p in enumerate(x.placements):
+    """(local shape, global offset) of this rank's shard of ``x``."""
+    return _extent(x.shape, x.placements, x.device_mesh)
+
+
+def _extent(shape, placements, mesh: DeviceMesh):
+    """(local shape, global offset) of this rank's shard of a tensor of
+    ``shape`` with ``placements``, as ``torch.chunk`` splits each sharded
+    dim, mesh dim by mesh dim, in plain ints (DTensor's own helper builds
+    index tensors, which a fake tensor mode would turn into host reads)."""
+    shape, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
         if isinstance(p, Shard):
-            chunk = -(-shape[p.dim] // x.device_mesh.size(i))
+            chunk = -(-shape[p.dim] // mesh.size(i))
             start = min(coord[i] * chunk, shape[p.dim])
             offset[p.dim] += start
             shape[p.dim] = min(chunk, shape[p.dim] - start)
     return shape, offset
+
+
+def rows_like(make: Callable, like: torch.Tensor) -> torch.Tensor:
+    """A tensor whose rows (dim 0) are ``like``'s, made by ``make(lo, n)``,
+    which returns its rows ``[lo, lo + n)``. A DTensor ``like`` gives a
+    DTensor sharded along dim 0 as ``like`` is and replicated on every
+    other mesh dim, each rank making its own rows only: nothing moves,
+    and what is computed from it runs on the rank's rows (the reference's
+    ids take the tokens' sharding so, through ``like=``). A plain
+    ``like``: ``make(0, len(like))``."""
+    if not isinstance(like, DTensor):
+        return make(0, like.shape[0])
+    mesh = like.device_mesh
+    pls = [Shard(0) if p == Shard(0) else Replicate() for p in like.placements]
+    (n, *_), (lo, *_) = _extent(like.shape[:1], pls, mesh)
+    local = make(lo, n).contiguous()  # sharded along dim 0 only: its strides are the whole's
+    return DTensor.from_local(local, mesh, pls, run_check=False,
+                              shape=(like.shape[0], *local.shape[1:]), stride=local.stride())
 
 
 def _vocab_shards(x: DTensor, dim: int):

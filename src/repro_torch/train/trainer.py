@@ -9,7 +9,8 @@ on one device or on a ``DeviceMesh``.
   SIGTERM) causes a final synchronous checkpoint + clean exit;
 * **straggler mitigation**: a step-time watchdog tracks the median of the
   last 50 steps; steps slower than ``straggler_factor`` x median are
-  recorded and surfaced.
+  recorded and surfaced. Steps are timed on ``clock`` (``time.perf_counter``
+  unless given), so a test can give them durations of its own.
 
 The third argument is a device (the card unless given) or a mesh. A
 restore writes the checkpoint into the state's own tensors
@@ -64,8 +65,10 @@ class Trainer:
         run_cfg: TrainerConfig = TrainerConfig(),
         dcfg: DataConfig = DataConfig(),
         fault_hook: Optional[Callable[[int], None]] = None,
+        clock: Callable[[], float] = time.perf_counter,
     ):
         self.cfg, self.shape = cfg, shape
+        self.clock = clock
         self.mesh = device if is_mesh(device) else None
         self.device = device if self.mesh is not None else resolve_device(device)
         self.tcfg, self.run_cfg, self.dcfg = tcfg, run_cfg, dcfg
@@ -117,12 +120,12 @@ class Trainer:
                         self.checkpointer.save(step, state, {"next_step": step})
                         self.checkpointer.wait()
                         return self._summary(state, step, preempted=True)
-                    t0 = time.perf_counter()
+                    t0 = self.clock()
                     if self.fault_hook is not None:
                         self.fault_hook(step)
                     state, metrics = self.step_fn(state, batch)
                     metrics = {k: float(v) for k, v in metrics.items()}
-                    dt = time.perf_counter() - t0
+                    dt = self.clock() - t0
                     self.step_times.append(dt)
                     if self._is_straggler(dt):
                         self.stragglers.append(step)

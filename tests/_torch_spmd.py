@@ -351,6 +351,55 @@ def case_serve(runs, shape, axes):
     return out
 
 
+def case_positions(serve_runs, train_runs, shape, axes, seq, batch):
+    """What the position ids look like on the ``shape`` mesh: every call of
+    ``models.model.stack_apply`` records its mode and its ids' placements
+    (``"plain"`` for a plain tensor). ``generate_timed`` for
+    each serve run (arch, batch, prompt, steps) from the seed-0 model, and
+    one train step for each train run (arch, microbatches) from the seed-0
+    state: the ids of each, tokens and logits, metrics and the state."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import Model
+    from repro_torch.models import model as model_mod
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serve import generate_timed
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    ids, stack_apply = [], model_mod.stack_apply
+
+    def recording(stack, cfg, x, *, positions, mode, **kw):
+        pls = str(tuple(positions.placements)) if isinstance(positions, DTensor) else "plain"
+        ids.append({"mode": mode, "placements": pls})
+        return stack_apply(stack, cfg, x, positions=positions, mode=mode, **kw)
+
+    model_mod.stack_apply = recording
+    mesh = _mesh(shape, axes)
+    serve, train = [], []
+    for arch, b, s, steps in serve_runs:
+        ids.clear()
+        cfg = get_arch(arch).reduced()
+        r = generate_timed(Model(cfg, device="cpu"), cfg, serve_batch(cfg, b, s), steps, mesh=mesh)
+        serve.append({"ids": list(ids), "tokens": r["tokens"].numpy(),
+                      "prefill_logits": r["prefill_logits"].numpy(),
+                      "logits": [x.numpy() for x in r["logits"]]})
+    for arch, micro in train_runs:
+        ids.clear()
+        cfg = get_arch(arch).reduced()
+        tcfg = TrainConfig(microbatches=micro, remat="dots",
+                           opt=AdamWConfig(warmup_steps=2, total_steps=10))
+        state = init_train_state(cfg, tcfg, mesh, seed=0)
+        bt = make_batch(cfg, ShapeSpec("tiny", seq, batch, "train"), DataConfig(), 0, mesh=mesh)
+        state, metrics = make_train_step(cfg, tcfg, mesh)(state, bt)
+        train.append({"ids": list(ids), "metrics": {k: float(v) for k, v in metrics.items()},
+                      "state": _gathered_state(state)})
+    return {"serve": serve, "train": train}
+
+
 def case_attention_split(cases):
     """``models.attention._attend`` on a ``(1, world)`` mesh for each case
     (label, H, KH, q placement, k/v placement on ``model``; "S2", "S3" or
@@ -423,6 +472,7 @@ CASES = {
     "moe_combine": case_moe_combine,
     "attention_split": case_attention_split,
     "serve": case_serve,
+    "positions": case_positions,
     "elastic": case_elastic,
     "train_step": case_train_step,
     "compressed_psum": case_compressed_psum,

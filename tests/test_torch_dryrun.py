@@ -20,11 +20,14 @@ On meshes whose ``model`` axis is wider than a GQA model's kv heads
 rank must compute only its share of the attention heads:
 ``test_heads_split_over_model`` holds the port's per-chip dot FLOPs to
 the reference's ``lower_cell`` + ``analyze`` on the same mesh shape over
-forced host devices.
+forced host devices. ``test_fsdp_loss_keeps_logits_vocab_sharded`` holds
+DeepSeek-V3's train step under FSDP on ``(2, 2)``: no all-gather of the
+loss's logits, and the reference's dot FLOPs.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -190,19 +193,33 @@ HEAD_CELLS = (
 #: x 128^2 x 4 x 16)
 UNEVEN_GAP = 289_406_976 / 236_978_176
 
+#: DeepSeek-V3's train step under FSDP, reduced, where its loss gathered
+#: the logits: the reduced config with a vocab of 2048, so that the head's
+#: weight (64 x 2048) passes FSDP's 2^16-element floor as at full width,
+#: FSDP on and two microbatches on (2, 2). Left to DTensor, the head's
+#: product split its contraction over ``data`` (logits of every row, partial
+#: sums over ``data``), and the loss's reduce-scatter of those sums first
+#: gathered the logits over ``model`` to the full vocab: at full width on
+#: 256 ranks, 3 x 33.9 GB per chip
+LOGITS_CELL = ("deepseek-v3-671b", "train_4k", (2, 2), {"vocab": 2048},
+               {"fsdp": True, "microbatches": 2})
+
 #: the cells above on the port: rank 0 of a fake process group, fake CPU
-#: tensors, reduced as ``--tiny`` reduces them
+#: tensors, reduced as ``--tiny`` reduces them (and by the cell's config
+#: and plan overrides)
 PORT_CELL = textwrap.dedent(
     """
     import dataclasses, json, sys
     from repro_torch.configs import SHAPES, get_arch
     from repro_torch.launch.dryrun import analyze, fake_mesh, lower_cell, plan_cell
     arch, name, shape = sys.argv[1], sys.argv[2], tuple(json.loads(sys.argv[3]))
-    cfg, s = get_arch(arch).reduced(), SHAPES[name]
+    cfg_over, plan_over = json.loads(sys.argv[4]), json.loads(sys.argv[5])
+    cfg, s = dataclasses.replace(get_arch(arch).reduced(), **cfg_over), SHAPES[name]
     s = dataclasses.replace(s, seq_len=min(s.seq_len, 128), global_batch=min(s.global_batch, 8))
     mesh = fake_mesh(shape, ("data", "model"), "cpu")
-    rec = analyze(lower_cell(cfg, s, mesh, plan_cell(cfg, s, mesh)))
-    print(json.dumps({"dot": rec["dot_flops_expanded"], "memory": rec["memory"]}))
+    rec = analyze(lower_cell(cfg, s, mesh, dict(plan_cell(cfg, s, mesh), **plan_over)))
+    print(json.dumps({"dot": rec["dot_flops_expanded"], "memory": rec["memory"],
+                      "collective_ops": rec["collective_ops"]}))
     """
 )
 
@@ -221,12 +238,12 @@ REF_CELLS = textwrap.dedent(
     from repro.launch.dryrun import analyze, lower_cell, plan_cell
     from repro.launch.mesh import make_mesh
     out = []
-    for arch, name, shape in json.loads(sys.argv[1]):
-        cfg, s = get_arch(arch).reduced(), SHAPES[name]
+    for arch, name, shape, cfg_over, plan_over in json.loads(sys.argv[1]):
+        cfg, s = dataclasses.replace(get_arch(arch).reduced(), **cfg_over), SHAPES[name]
         s = dataclasses.replace(s, seq_len=min(s.seq_len, 128),
                                 global_batch=min(s.global_batch, 8))
         mesh = make_mesh(tuple(shape), ("data", "model"))
-        plan = plan_cell(cfg, s, mesh)
+        plan = dict(plan_cell(cfg, s, mesh), **plan_over)
         rec = {"free": analyze(lower_cell(cfg, s, mesh, plan))["dot_flops_expanded"]}
         with mesh:
             rec["pinned"] = analyze(lower_cell(cfg, s, mesh, plan))["dot_flops_expanded"]
@@ -239,27 +256,32 @@ REF_CELLS = textwrap.dedent(
 @pytest.fixture(scope="module")
 def head_records():
     """{cell: (the port's record, the reference's dot FLOPs free and
-    pinned)}: the reference in one child, the port's cells beside it, a
-    child each."""
-    def port(cell):
-        arch, shape, mesh = cell
-        return subprocess.run([sys.executable, "-c", PORT_CELL, arch, shape, json.dumps(mesh)],
-                              capture_output=True, text=True, env=_env(), cwd=ROOT, timeout=600,
-                              preexec_fn=_nice)
+    pinned)} of ``HEAD_CELLS`` and ``LOGITS_CELL``: the reference in two
+    children (the head cells, then the logits cell), the port's cells
+    beside them, a child each."""
+    head = [(*c, {}, {}) for c in HEAD_CELLS]
+    cells = head + [LOGITS_CELL]
 
-    with ThreadPoolExecutor(3) as pool:
-        ref = pool.submit(subprocess.run, [sys.executable, "-c", REF_CELLS,
-                                           json.dumps(HEAD_CELLS)],
-                          capture_output=True, text=True, env=_env(), cwd=ROOT, timeout=900,
-                          preexec_fn=_nice)
-        ports = list(pool.map(port, HEAD_CELLS))
-        ref = ref.result()
-    assert ref.returncode == 0, ref.stderr[-3000:]
-    for cell, proc in zip(HEAD_CELLS, ports):
+    def run(*args, timeout=600):
+        return subprocess.run([sys.executable, "-c", *args], capture_output=True, text=True,
+                              env=_env(), cwd=ROOT, timeout=timeout, preexec_fn=_nice)
+
+    def port(cell):
+        arch, shape, mesh, cfg_over, plan_over = cell
+        return run(PORT_CELL, arch, shape, *map(json.dumps, (mesh, cfg_over, plan_over)))
+
+    with ThreadPoolExecutor(4) as pool:
+        refs = [pool.submit(run, REF_CELLS, json.dumps(group), timeout=900)
+                for group in (head, [LOGITS_CELL])]
+        ports = list(pool.map(port, cells))
+        refs = [r.result() for r in refs]
+    for ref in refs:
+        assert ref.returncode == 0, ref.stderr[-3000:]
+    for cell, proc in zip(cells, ports):
         assert proc.returncode == 0, f"{cell}: {proc.stderr[-3000:]}"
-    refs = json.loads(ref.stdout.splitlines()[-1])
-    return {cell: (json.loads(p.stdout.splitlines()[-1]), r)
-            for cell, p, r in zip(HEAD_CELLS, ports, refs)}
+    refs = sum((json.loads(r.stdout.splitlines()[-1]) for r in refs), [])
+    return {cell[:3]: (json.loads(p.stdout.splitlines()[-1]), r)
+            for cell, p, r in zip(cells, ports, refs)}
 
 
 @pytest.mark.parametrize("cell", HEAD_CELLS,
@@ -285,6 +307,24 @@ def test_decode_reads_the_cache_in_place(head_records):
     of k and v per layer tripled them (536,136 against 181,320)."""
     got, _ = head_records[("llama3-8b", "decode_32k", (1, 4))]
     assert got["memory"]["temp_size_in_bytes"] < 181_320
+
+
+def test_fsdp_loss_keeps_logits_vocab_sharded(head_records):
+    """DeepSeek-V3's train step under FSDP (``LOGITS_CELL``): the head's
+    weight is gathered over ``data`` (FSDP's gather) and the logits keep
+    their rows on their data ranks and their vocab over ``model`` through
+    the loss and the MTP term, so no rank gathers logits: no all-gather's
+    operand is shaped as logits, (rows, positions, the vocab shard 2048 / 2)
+    (the MTP term's positions one fewer). Per-chip dot FLOPs equal the
+    reference's own dry run (pinned) within 2%."""
+    got, want = head_records[LOGITS_CELL[:3]]
+    vocab_shard = LOGITS_CELL[3]["vocab"] // LOGITS_CELL[2][1]
+    logits = re.compile(rf"all-gather \(\d+, 12[78], {vocab_shard}\) ")
+    gathers = [op for op in got["collective_ops"] if logits.match(op[0])]
+    print(f"{LOGITS_CELL[:3]}: port {got['dot']:,.0f}, reference pinned {want['pinned']:,.0f}; "
+          f"largest collectives {got['collective_ops'][:4]}")
+    assert gathers == []
+    assert got["dot"] / want["pinned"] == pytest.approx(1.0, rel=0.02)
 
 
 def test_without_a_card_exits_2(tmp_path):

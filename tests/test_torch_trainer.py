@@ -36,12 +36,13 @@ def _tcfg():
     return TrainConfig(microbatches=1, remat="none", opt=AdamWConfig(**OPT))
 
 
-def _trainer(tmp_path, steps=30, fault_hook=None, **kw):
+def _trainer(tmp_path, steps=30, fault_hook=None, clock=time.perf_counter, **kw):
     cfg = get_arch("internlm2-1.8b").reduced()
     run = TrainerConfig(
         steps=steps, ckpt_dir=str(tmp_path / "ckpt"), ckpt_every=5, log_every=100, **kw
     )
-    return Trainer(cfg, SHAPE, "cpu", _tcfg(), run, DataConfig(seed=1), fault_hook=fault_hook)
+    return Trainer(cfg, SHAPE, "cpu", _tcfg(), run, DataConfig(seed=1), fault_hook=fault_hook,
+                   clock=clock)
 
 
 def test_loss_decreases(tmp_path):
@@ -103,12 +104,24 @@ def test_preemption_checkpoint_and_exit(tmp_path):
 
 
 def test_straggler_detection(tmp_path):
+    """Step 20 is 1 s slower than the others on the Trainer's clock. The
+    clock is the test's own (every step reads 0.1 s on it), so the delay
+    does not drown in the machine's load: an eager CPU step under a busy
+    test run can take 2 s, and a real 1 s sleep then stays under 2 x the
+    median."""
+    clock = {"t": 0.0}
+
+    def tick():
+        clock["t"] += 0.05  # twice a step: 0.1 s a step
+        return clock["t"]
+
     def hook(step):
         if step == 20:
-            time.sleep(1.0)  # synthetic slow step
+            clock["t"] += 1.0  # synthetic slow step
 
-    out = _trainer(tmp_path, steps=25, fault_hook=hook).train()
+    out = _trainer(tmp_path, steps=25, fault_hook=hook, clock=tick).train()
     assert 20 in out["stragglers"]
+    assert out["stragglers"] == [20]
 
 
 def test_a_restarted_trainer_resumes_from_its_checkpoint(tmp_path):
