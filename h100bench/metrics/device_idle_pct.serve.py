@@ -1,0 +1,4 @@
+"""device_idle_pct.serve: the card's idle share of the traced serving
+window, in %: 1 - (union of the device operations' intervals) / window."""
+
+from h100bench.trace import idle_pct as read  # noqa: F401
