@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..configs.base import ArchConfig
+from ..obs.trace import checkpointed
 from ..sharding.dtensor import fsdp_gather, rows_like, vocab_embedding, vocab_nll
 from .layers import Init, dense_init, embed_init, rmsnorm, rmsnorm_init, sinusoidal_positions, torch_dtype
 from .transformer import block_apply, block_init, stack_apply, stack_init
@@ -316,7 +317,9 @@ def chunked_ce(
     """Masked CE without materializing (B, S, V) logits: the sequence is
     split into n_chunks, each chunk's logits are computed, reduced, and
     *rematerialized* in the backward pass (``torch.utils.checkpoint``, the
-    reference's ``jax.checkpoint``), so live logits are (B, S/n, V).
+    reference's ``jax.checkpoint``), so live logits are (B, S/n, V). Under
+    ``torch.profiler`` each chunk's recompute is the layer span
+    ``train.recompute`` (:func:`repro_torch.obs.trace.checkpointed`).
     """
     b, s, d = hidden.shape
     while s % n_chunks:
@@ -335,7 +338,7 @@ def chunked_ce(
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n_chunks):
-        t, c = checkpoint(chunk_stats, hc[i], lc[i], use_reentrant=False)
+        t, c = checkpoint(checkpointed, chunk_stats, hc[i], lc[i], use_reentrant=False)
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -23,6 +23,13 @@ keeps its sub-layer boundaries (the reference's ``mixer_out`` and
 ``ffn_out``) and recomputes what lies inside them. Remat changes memory,
 never values. The reference maps an unknown name to full remat; here an
 unknown name raises ``ValueError``.
+
+Under ``torch.profiler`` the stack records two layer spans
+(:func:`repro_torch.obs.trace.layer_span`):
+``model.attention`` around a mixer's attention (its device time where grad
+is enabled), and ``train.recompute`` around each recompute of a
+checkpointed block or sub-layer, which the backward pass runs, with its
+device time (:func:`repro_torch.obs.trace.checkpointed`).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..configs.base import ArchConfig
+from ..obs.trace import checkpointed, layer_span
 from .attention import attention, attn_init
 from .layers import Init, mlp, mlp_init, rmsnorm, rmsnorm_init
 from .moe import moe_apply, moe_init
@@ -153,8 +161,10 @@ def stack_init(init: Init, cfg: ArchConfig, dtype, *, cross: bool = False,
 def _mixer_sublayer(params: Block, cfg, mixer, x, positions, mode, cache, impl):
     h = rmsnorm(params.norm1, x, cfg.rms_offset)
     if mixer == "attn":
-        return attention(params.mixer, cfg, h, positions=positions, mode=mode, cache=cache,
-                         impl=impl)
+        # its device time only where grad is on: in a train step, not in decode
+        with layer_span("model.attention", device=torch.is_grad_enabled()):
+            return attention(params.mixer, cfg, h, positions=positions, mode=mode, cache=cache,
+                             impl=impl)
     return ssm_apply(params.mixer, cfg, h, cache=cache)
 
 
@@ -188,8 +198,8 @@ def block_apply(
 ):
     """Returns (x, new_cache, aux_loss). ``remat_sublayers`` checkpoints
     each sub-layer (remat ``"save_block_io"``)."""
-    run = (lambda f, *a: checkpoint(f, *a, use_reentrant=False)) if remat_sublayers \
-        else (lambda f, *a: f(*a))
+    run = (lambda f, *a: checkpoint(checkpointed, f, *a, use_reentrant=False)) \
+        if remat_sublayers else (lambda f, *a: f(*a))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict = {}
     h, c = run(_mixer_sublayer, params, cfg, mixer, x, positions, mode,
@@ -249,7 +259,8 @@ def stack_apply(
                   cache=caches[i] if caches is not None else None,
                   enc_out=enc_out, impl=impl, cross=cross, remat_sublayers=sublayers)
         if wrap:
-            x, c_out, aux = checkpoint(block_apply, layer, cfg, *layer.kind, x, **ckpt_kw, **kw)
+            x, c_out, aux = checkpoint(checkpointed, block_apply, layer, cfg, *layer.kind, x,
+                                       **ckpt_kw, **kw)
         else:
             x, c_out, aux = block_apply(layer, cfg, *layer.kind, x, **kw)
         aux_total = aux_total + aux

@@ -8,7 +8,10 @@ metric names and the same ``REPRO_OBS_DISABLED=1`` switch (see
   counters, gauges, and fixed-bucket histograms with snapshot/reset
   semantics and two exporters (Prometheus text + canonical JSON).
 * :mod:`repro_torch.obs.trace`   -- context-manager spans over the
-  monotonic clock with parent/child nesting and a per-request trace id.
+  monotonic clock with parent/child nesting and a per-request trace id;
+  and the train and serve steps' layer spans, recorded while a
+  ``torch.profiler`` session records (the one module here that reads
+  torch).
 * :mod:`repro_torch.obs.logging` -- structured JSON line logging under the
   ``repro_torch`` logger namespace.
 * :mod:`repro_torch.obs.exemplar` -- per-route worst-latency exemplars

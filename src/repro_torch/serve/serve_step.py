@@ -32,6 +32,7 @@ from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..models.layers import torch_dtype
 from ..models.model import Model, _head, forward, forward_hidden
+from ..obs.trace import layer_span
 from ..sharding.dtensor import (
     check_placed,
     distribute_batch,
@@ -126,9 +127,11 @@ def generate_timed(
     "prefill_logits" (B, V), "logits" [(B, V) per decode step], "caches"
     (after the last step), "prefill_s", "decode_s" [per decode step]}``.
     Each clock is the host's, stopped once the device has finished the
-    step. Vision models reserve ``n_frontend_tokens`` more cache slots for
-    the prepended patches. With ``mesh``, a plain model is first placed on
-    it by ``param_specs`` (in place) and the steps serve on the mesh."""
+    step. Under ``torch.profiler`` each decode step is the layer span
+    ``serve.decode`` (:func:`repro_torch.obs.trace.layer_span`). Vision
+    models reserve ``n_frontend_tokens`` more cache slots for the
+    prepended patches. With ``mesh``, a plain model is first placed on it
+    by ``param_specs`` (in place) and the steps serve on the mesh."""
     if mesh is not None:
         device = mesh_device(mesh)
         if not isinstance(params.embed, DTensor):
@@ -149,9 +152,12 @@ def generate_timed(
     toks: List[torch.Tensor] = [tok]
     for pos in range(s, s + steps - 1):
         t0 = time.perf_counter()
-        logits, caches = decode(params, tok[:, None], caches, pos)
-        tok = greedy(logits)
-        _sync(device)
+        # one span per decode step, its synchronise inside: every device
+        # operation the step launched has ended when the span closes
+        with layer_span("serve.decode"):
+            logits, caches = decode(params, tok[:, None], caches, pos)
+            tok = greedy(logits)
+            _sync(device)
         out["decode_s"].append(time.perf_counter() - t0)
         out["logits"].append(logits)
         toks.append(tok)

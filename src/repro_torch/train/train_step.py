@@ -38,6 +38,12 @@ moments' layout; compression and AdamW then work on local shards. The
 helpers of :mod:`repro_torch.sharding.dtensor` that do this leave plain
 tensors as they are, so a ``torch.device`` keeps the single-device path
 above.
+
+Under ``torch.profiler`` the step records the layer spans
+(:func:`repro_torch.obs.trace.layer_span`, each with its device time)
+``train.step`` (the whole step) and ``train.forward`` (each microbatch's
+forward pass and loss); the stack adds ``model.attention`` and
+``train.recompute`` (:mod:`repro_torch.models.transformer`).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from .._device import resolve_device
 from ..configs.base import ArchConfig
 from ..models.convert import reference_layout
 from ..models.model import Model, chunked_ce, forward_hidden
+from ..obs.trace import layer_span
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..optim.compression import CompressionState, compress_grads, compression_init
 from ..sharding.dtensor import (
@@ -167,7 +174,8 @@ def _grads(model: Model, names, params, cfg, tcfg, batch, n_chunks):
     """(grads by name in the parameters' dtypes, metrics) of one batch;
     a parameter the loss does not reach gets zeros, as ``jax.grad``
     gives."""
-    loss, metrics = _loss_fn(model, cfg, tcfg, batch, n_chunks)
+    with layer_span("train.forward", device=True):  # remat's recompute is train.recompute
+        loss, metrics = _loss_fn(model, cfg, tcfg, batch, n_chunks)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
     return grads, {k: v.detach() for k, v in metrics.items()}
@@ -190,6 +198,10 @@ def make_train_step(
     m = tcfg.microbatches
 
     def step_fn(state, batch):
+        with layer_span("train.step", device=True):
+            return _step(state, batch)
+
+    def _step(state, batch):
         model = state["params"]
         names, params = zip(*model.named_parameters())
         check_placed(params, where)

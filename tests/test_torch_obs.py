@@ -20,23 +20,37 @@ Where the port differs by design: its loggers live under the
 ``repro_torch`` namespace (the reference's under ``repro``), so the
 re-rooted logger name and the root logger the test cleans up are
 ``repro_torch``'s.
+
+The port's own cases close the file: its layer spans
+(``repro_torch.obs.trace.layer_span``), which the reference does not have,
+recorded only under ``torch.profiler`` in a tiny train step and in
+``generate_timed``, on the clock of the profiler's events; and, on the
+card (``cuda`` marker), a decode step's device operations inside its span.
 """
 
+import collections
 import dataclasses
 import io
 import json
 import logging as pylogging
+import sys
 import tempfile
 import threading
+import timeit
 
 import pytest
+import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import MAXWELL, enumerate_hw_space
 from repro_torch.core.timemodel import MAXWELL_GPU, TITANX_GPU
 from repro_torch.core.workload import paper_workload
+from repro_torch.models import Model
 from repro_torch.obs import configure_logging, get_logger
 from repro_torch.obs.metrics import Registry, get_registry, set_disabled
-from repro_torch.obs.trace import current_trace_id, span, trace
+from repro_torch.obs.trace import RING, clear, current_trace_id, layer_span, recorded, span, trace
+from repro_torch.optim import adamw_init
+from repro_torch.serve import generate_timed
 from repro_torch.service import (
     ArtifactStore,
     CodesignServer,
@@ -46,6 +60,7 @@ from repro_torch.service import (
     serve_http,
     wire,
 )
+from repro_torch.train import TrainConfig, make_train_step
 
 STRIDE = 64
 STENCILS = ["heat2d", "jacobi2d"]
@@ -490,3 +505,244 @@ def test_exemplar_trace_id_cross_references_header(fleet):
     everything = (snap["routes"].get("/v1/query", {}).get("slow", [])
                   + list(snap["routes"].get("/v1/query", {}).get("errors", [])))
     assert any(e["trace_id"] == tid for e in everything) or len(everything) > 0
+
+
+# ---------------------------------------------------------------------------
+# The port's layer spans
+# ---------------------------------------------------------------------------
+#: the module itself (the package's ``trace`` name is the function)
+_LAYERS = sys.modules["repro_torch.obs.trace"]
+_TINY = get_arch("internlm2-1.8b").reduced()
+
+
+def _profiled(fn, on):
+    """``fn()`` under ``torch.profiler`` (``on``) or not: (its result, the
+    layer spans it recorded, the profiler's CPU events)."""
+    clear()
+    if not on:
+        return fn(), recorded(), []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, recorded(), list(prof.profiler.kineto_results.events())
+
+
+def _train_step(remat, loss_chunks=0):
+    """One tiny train step of two microbatches: (loss, the parameters after)."""
+    tcfg = TrainConfig(microbatches=2, remat=remat, loss_chunks=loss_chunks)
+    model = Model(_TINY, device="cpu", generator=torch.Generator().manual_seed(0))
+    state = {"params": model, "opt": adamw_init(model, tcfg.opt)}
+    toks = torch.randint(0, _TINY.vocab, (4, 16), generator=torch.Generator().manual_seed(1))
+    _, m = make_train_step(_TINY, tcfg, device="cpu")(state, {"tokens": toks,
+                                                            "labels": toks.roll(-1, 1)})
+    return float(m["loss"]), [p.detach().clone() for p in model.parameters()]
+
+
+def _serve(steps=4):
+    model = Model(_TINY, device="cpu", generator=torch.Generator().manual_seed(0))
+    toks = torch.randint(0, _TINY.vocab, (2, 8), generator=torch.Generator().manual_seed(2))
+    return generate_timed(model, _TINY, {"tokens": toks}, steps, device="cpu")["tokens"]
+
+
+def _named(spans, i):
+    p = spans[i]["parent"]
+    return None if p is None else spans[p]["name"]
+
+
+def test_layer_spans_record_nothing_without_the_profiler():
+    _profiled(lambda: _train_step("full"), on=False)
+    assert recorded() == []
+    _profiled(_serve, on=False)
+    assert recorded() == []
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "save_block_io", "none"])
+def test_train_step_layer_spans_nest_and_change_no_number(remat):
+    plain, _, _ = _profiled(lambda: _train_step(remat), on=False)
+    (loss, params), spans, _ = _profiled(lambda: _train_step(remat), on=True)
+    assert loss == plain[0]
+    assert all(torch.equal(a, b) for a, b in zip(params, plain[1]))
+    names = collections.Counter((s["name"], _named(spans, i)) for i, s in enumerate(spans))
+    n_blocks = 2 * _TINY.n_layers  # two microbatches
+    recompute = {"full": n_blocks, "dots": n_blocks, "save_block_io": 2 * n_blocks, "none": 0}
+    assert names == collections.Counter({
+        ("train.step", None): 1,
+        ("train.forward", "train.step"): 2,
+        ("model.attention", "train.forward"): n_blocks,
+        **({("train.recompute", "train.step"): recompute[remat],
+            ("model.attention", "train.recompute"): n_blocks} if remat != "none" else {}),
+    })
+    # a recompute runs in the backward pass: after its microbatch's forward
+    # pass has ended and before the next one starts
+    fwd = [(s["start_ns"], s["end_ns"]) for s in spans if s["name"] == "train.forward"]
+    for s in spans:
+        if s["name"] == "train.recompute":
+            assert not any(a <= s["start_ns"] <= z for a, z in fwd)
+            assert any(z < s["start_ns"] for _, z in fwd)
+    for s in spans:
+        assert s["start_ns"] <= s["end_ns"] and s["device_ms"] is None  # no card here
+        if s["parent"] is not None:
+            p = spans[s["parent"]]
+            assert p["start_ns"] <= s["start_ns"] and s["end_ns"] <= p["end_ns"]
+
+
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_the_loss_chunks_recompute_is_a_recompute_span(remat):
+    """``chunked_ce`` checkpoints each loss chunk: its recompute in the
+    backward pass is a ``train.recompute`` span too, with or without remat
+    of the blocks, and holds no attention."""
+    plain, _, _ = _profiled(lambda: _train_step(remat, loss_chunks=4), on=False)
+    (loss, params), spans, _ = _profiled(lambda: _train_step(remat, loss_chunks=4), on=True)
+    assert loss == plain[0]
+    assert all(torch.equal(a, b) for a, b in zip(params, plain[1]))
+    n_blocks = 2 * _TINY.n_layers  # two microbatches
+    recompute = [i for i, s in enumerate(spans) if s["name"] == "train.recompute"]
+    assert len(recompute) == 2 * 4 + (n_blocks if remat == "full" else 0)
+    assert all(_named(spans, i) == "train.step" for i in recompute)
+    held = collections.Counter(spans[s["parent"]]["name"] for s in spans
+                               if s["name"] == "model.attention")
+    assert held == collections.Counter({"train.forward": n_blocks,
+                                        **({"train.recompute": n_blocks} if remat == "full" else {})})
+
+
+def test_generate_timed_records_one_decode_span_per_step():
+    plain, _, _ = _profiled(_serve, on=False)
+    tokens, spans, _ = _profiled(_serve, on=True)
+    assert torch.equal(tokens, plain)
+    names = collections.Counter((s["name"], _named(spans, i)) for i, s in enumerate(spans))
+    # the prefill's attention has no parent span; each of 3 decode steps holds its layers'
+    assert names == collections.Counter({("serve.decode", None): 3,
+                                         ("model.attention", None): _TINY.n_layers,
+                                         ("model.attention", "serve.decode"): 3 * _TINY.n_layers})
+
+
+def test_an_op_inside_a_span_lies_inside_it_on_the_profilers_clock():
+    x = torch.randn(128, 128)
+
+    def work():
+        with layer_span("test.outer", attrs={"k": 1}):
+            with layer_span("test.inner"):
+                return x @ x
+
+    _, spans, events = _profiled(work, on=True)
+    inner = next(s for s in spans if s["name"] == "test.inner")
+    assert spans[inner["parent"]]["name"] == "test.outer"
+    assert spans[inner["parent"]]["attrs"] == {"k": 1}
+    mm = [e for e in events if e.name() == "aten::mm"]
+    assert len(mm) == 1
+    a, z = mm[0].start_ns(), mm[0].start_ns() + mm[0].duration_ns()
+    assert inner["start_ns"] <= a <= z <= inner["end_ns"]
+    # the span's own profiler range, on the same clock
+    rng = [e for e in events if e.name() == "repro/test.inner"]
+    assert len(rng) == 1 and inner["start_ns"] <= rng[0].start_ns() <= inner["end_ns"]
+
+
+def test_the_span_ring_drops_the_oldest(monkeypatch):
+    assert RING >= 10**6
+    monkeypatch.setattr(_LAYERS, "_RECORDS", collections.deque(maxlen=3))
+
+    def work():
+        for i in range(5):
+            with layer_span(f"test.{i}"):
+                pass
+
+    _, spans, _ = _profiled(work, on=True)
+    assert [s["name"] for s in spans] == ["test.2", "test.3", "test.4"]
+
+
+def test_spans_of_concurrent_threads_keep_their_own_parents():
+    n_threads, n_spans = 16, 200
+
+    def worker(k):
+        for i in range(n_spans):
+            with layer_span("test.outer", attrs={"k": k}):
+                with layer_span("test.inner", attrs={"k": k}):
+                    pass
+
+    def work():
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=worker, args=(k,)) for k in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+        finally:
+            sys.setswitchinterval(old)
+
+    _, spans, _ = _profiled(work, on=True)
+    assert len(spans) == 2 * n_threads * n_spans and not _LAYERS._OPEN
+    for s in spans:
+        if s["name"] == "test.inner":  # its own thread's outer span, never another's
+            p = spans[s["parent"]]
+            assert p["name"] == "test.outer" and p["tid"] == s["tid"] and p["attrs"] == s["attrs"]
+        else:  # outside a backward pass, another thread's open span is no parent
+            assert s["parent"] is None
+
+
+def test_a_span_site_costs_under_a_microsecond_off():
+    assert not torch.autograd.profiler._is_profiler_enabled
+    clear()
+    per = min(timeit.repeat("with layer_span('serve.decode'):\n    pass",
+                            globals={"layer_span": layer_span}, number=10**5, repeat=5)) / 10**5
+    print(f"a span site with nothing recording: {per * 1e9:.0f} ns")
+    assert per < 1e-6
+    assert recorded() == []
+
+
+@pytest.mark.cuda
+def test_decode_step_device_ops_lie_inside_their_spans():
+    """On the card at a tiny size: every device operation of a decode step
+    lies inside its ``serve.decode`` span (within 50 us), and a device
+    span's event pair reads the extent of the traced kernels inside it
+    within 5%."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.autograd import DeviceType
+
+    card = torch.device("cuda")
+    model = Model(_TINY, device=card, generator=torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, _TINY.vocab, (2, 8), device=card)
+    generate_timed(model, _TINY, {"tokens": toks}, 3, device=card)  # warm
+    # products long enough that the launch before the first one, which the
+    # event pair also times, is well under 5% of the span
+    a = torch.randn(8192, 8192, device=card, dtype=torch.bfloat16)
+    a @ a  # warm
+    torch.cuda.synchronize()
+
+    def work():
+        generate_timed(model, _TINY, {"tokens": toks}, 6, device=card)
+        with layer_span("test.products", device=True):
+            for _ in range(20):
+                a @ a
+            torch.cuda.synchronize()
+
+    clear()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        work()
+    spans = recorded()
+    ops = [(e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    decode = [(s["start_ns"], s["end_ns"]) for s in spans if s["name"] == "serve.decode"]
+    assert len(decode) == 5
+    # serving runs without grad: its attention spans record no event pair
+    assert all(s["device_ms"] is None for s in spans if s["name"] == "model.attention")
+    slack = 50_000
+    for a0, z0 in decode:
+        assert any(a0 - slack <= a1 and z1 <= z0 + slack for a1, z1 in ops)
+    # from the first step's start to the last one's end, the card runs only
+    # the steps' operations: each lies inside one of the spans
+    steps = [(a1, z1) for a1, z1 in ops if decode[0][0] - slack <= z1 and a1 <= decode[-1][1]]
+    assert all(any(a0 - slack <= a1 and z1 <= z0 + slack for a0, z0 in decode)
+               for a1, z1 in steps)
+    # the pair times the stream from the span's start to its end: the first
+    # of its kernels' starts to the last one's end
+    prod = next(s for s in spans if s["name"] == "test.products")
+    mine = [(a1, z1) for a1, z1 in ops if prod["start_ns"] <= a1 and z1 <= prod["end_ns"]]
+    extent = max(z1 for _, z1 in mine) - min(a1 for a1, _ in mine)
+    print(f"products: pair {prod['device_ms']:.4f} ms, kernels' extent {extent * 1e-6:.4f} ms, "
+          f"their sum {sum(z1 - a1 for a1, z1 in mine) * 1e-6:.4f} ms")
+    assert prod["device_ms"] == pytest.approx(extent * 1e-6, rel=0.05)
