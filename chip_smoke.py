@@ -10,7 +10,8 @@ measurement grid timed on the card, the machine parameters refitted, and
 the sweep again on the calibrated machine. Phases:
 
 0. device facts (exits non-zero without a card);
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
+1. build the stencil kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+   (the attention library is built apart, at its first use in phase 6);
 2. every kernel x stencil against its plain torch version on the card
    (f32 and bf16, ragged shapes, several tiles and bands, 8192^2 and 256^3,
    and the K1/K2 edge cases of ``EDGE_CASES``, also from an input off the
@@ -23,6 +24,12 @@ the sweep again on the calibrated machine. Phases:
 6. kernel times (CUDA events) beside their bound, plain and library times;
    K1/K2 at every tile of the measurement grid and K1 at the 2-D jacobi
    optimum, each with its bound share, shared memory and blocks per SM;
+   then the fused attention (``kernels/attention.py``): its library's
+   compile seconds, and its forward and backward at one microbatch of the
+   benchmark's training cell (``ATTN_SHAPE``) beside their bound (the
+   causal pairs' useful products at 989 TFLOP/s), the plain core
+   (``_sdpa``) and ``F.scaled_dot_product_attention`` as the library
+   yardstick (here only: the port never calls it);
 7. the served path, in a temporary artifact store: ``repro_torch.measure
    .cli`` ``run --full`` (K1/K2 on the card), ``fit``, ``build --engine
    torch`` at full width; the calibrated sweep served by
@@ -70,14 +77,19 @@ the sweep again on the calibrated machine. Phases:
    tokens and the prefill logits and final caches within 1e-4; ``forward``
    with ``impl="chunked"`` against ``"plain"`` at S = 2100; then
    Llama-3-8B at full width on phase 9's bf16 tree (the same seed): (a) 4
-   x 512-token prompts + 32 greedy decode steps, (b) 1 x 8192 tokens (the
-   chunked attention path) + 4 steps, each run twice (cold, warm), the
+   x 512-token prompts + 32 greedy decode steps, (b) 1 x 8192 tokens (at
+   ``CHUNKED_THRESHOLD``; the fused core takes it, as it takes (a)'s
+   prefill) + 4 steps, each run twice (cold, warm), the
    prefill logits and decode steps 1 and last held against a cacheless
    ``forward`` within ``LOGIT_RTOL`` of the logits' scale, the greedy-token
    agreement reported; prefill ms, decode ms per step, tokens/s and
-   ``max_memory_allocated`` beside their bounds (``_serve_bounds``); and
+   ``max_memory_allocated`` beside their bounds (``_serve_bounds``); (b)'s
+   prompt through ``forward`` with ``impl="chunked"`` (the chunked core in
+   bf16 at full width) held against the fused core's within
+   ``LOGIT_RTOL``; and
    ``python -m repro_torch.launch.serve --arch llama3-8b`` as a child at
-   case (a)'s shape. No kernel lies on this path either;
+   case (a)'s shape. No stencil kernel lies on this path; the bf16
+   prefills run the fused attention;
 11. training (``repro_torch.train``, ``optim``, ``data``, ``checkpoint``):
    (a) one train step (remat ``"dots"``, two microbatches; int8 gradient
    compression for ``TRAIN_COMPRESS_ARCH``) on the six reduced archs of
@@ -98,7 +110,8 @@ the sweep again on the calibrated machine. Phases:
    ``torch.profiler`` count of one step's device operations and busy
    share; (c) ``python -m repro_torch.launch.train --arch internlm2-1.8b
    --reduced --steps 20`` as a child (train_4k's sequence, the batch cut
-   to 8, remat full). No kernel lies on this path either;
+   to 8, remat full). No stencil kernel lies on this path; (b)'s forward,
+   recompute and backward run the fused attention;
 12. multi-device (one card, so one rank): (a) the sharded sweep at full
    width, ``sweep_cells_sharded`` with ``devices=1`` and with
    ``devices=["cuda:0"] * 4`` (four shards on the one card) over every
@@ -110,7 +123,8 @@ the sweep again on the calibrated machine. Phases:
    six reduced archs on the mesh against the single-device card step (f32,
    no TF32: metrics and every state leaf within 1e-6); (c) InternLM2-1.8B
    at full width on that mesh from phase 11's seeded state (bf16, 8 x
-   4096 tokens, M = 4, remat full), 2 steps whose ``lm_loss`` must equal
+   4096 tokens, M = 4, remat full; the fused attention runs on each rank's
+   tensors, as in phase 11), 2 steps whose ``lm_loss`` must equal
    phase 11's first two (the largest difference printed), ms per step
    beside phase 11's and its bound, peak memory; (d) Llama-3-8B served on
    the mesh at phase 10 (a)'s shape, its tokens equal to phase 10's and
@@ -157,18 +171,22 @@ the sweep again on the calibrated machine. Phases:
    on this path either.
 
 The launch counters are set to 0 just before phase 3 and read just after
-phase 5, and again just before and after phase 7: every kernel must have
-been launched on the main path, and K1/K2 on the served path; they are
-set to 0 before phase 9 and must read 0 after it, and again around phases
-10, 11, 12 and 13. A failed
-check raises; nothing is caught. The last three lines are a JSON object of
-per-kernel numbers (launches: main path plus served path), the card's name
-and power limit as ``nvidia-smi`` gives them, and the device record.
+phase 5, and again just before and after phase 7: every stencil kernel
+must have been launched on the main path, and K1/K2 on the served path;
+they are set to 0 before phase 9 and the stencil counters must read 0
+after it, and again around phases 10, 11, 12 and 13; the fused attention
+must run on the paths of phases 10 (its forward), 11 and 12, and its rows
+count their launches there. A failed check raises; nothing is caught. The
+last three lines are a JSON object of per-kernel numbers (launches: the
+main path plus the served path for the stencil kernels, the LM paths of
+phases 10-12 for the attention), the card's name and power limit as
+``nvidia-smi`` gives them, and the device record.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -196,6 +214,9 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_MICRO, TRAIN_LR = "internlm2-1.8b", 8, 4, 1e-3
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAULT_AT = 6, 3, 4
 #: phase 11 (a): the parity arch that also runs int8 gradient compression
 TRAIN_COMPRESS_ARCH = "llama3-8b"
+#: phase 6's attention shape: one microbatch of the benchmark's training
+#: cell (InternLM2-1.8B): batch, sequence, query heads, kv heads, head width
+ATTN_SHAPE = (2, 4096, 16, 8, 128)
 #: bf16 logits of the serve steps against a cacheless forward: max |diff|
 #: within this fraction of the largest |logit|. bf16 keeps 8 significant
 #: bits (a step of 2^-8 = 0.4% of a value); the two paths differ only in
@@ -723,6 +744,107 @@ def phase6_times(launches, errs):
                  "launches": launches[kernel], "max_abs_err": errs[kernel], **rows[kernel]}
         for kernel, (label, source, replaces) in meta.items()
     }
+
+
+def phase6_attention():
+    """The fused attention at ``ATTN_SHAPE`` (causal, bf16): its library's
+    build, then forward and backward by CUDA events beside their bound,
+    the plain core's times and ``F.scaled_dot_product_attention``'s (the
+    library yardstick; the port never calls it); out, dq, dk and dv held
+    against ``_sdpa``'s. One row per direction, keyed by its launch
+    counter, whose launches ``main`` fills in from the LM paths that run
+    the kernels."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models.attention import _mask_bias, _sdpa
+
+    say("== phase 6 (attention): the fused kernels (CUDA events, warm, mean of 20 calls)")
+    t0 = time.perf_counter()
+    report = _build.build("attention")["attention"]
+    compile_s = time.perf_counter() - t0
+    say(f"attention library: built in {compile_s:.2f} s (nvcc {report['seconds']:.2f} s) -> "
+        f"{report['path']}")
+    for line in report["log"].splitlines():
+        if any(k in line for k in ("Compiling entry", "registers", "spill", "error")):
+            say("    " + line.strip())
+    b, s, h, kh, d = ATTN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                     for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d)))
+    pos = torch.arange(s, device="cuda")[None].expand(b, s)
+    scale = 1.0 / math.sqrt(d)
+    bias = _mask_bias(pos, pos, "causal", 0)
+    cores = {
+        "fused": lambda q, k, v: fa.fused_attention(q, k, v, pos, pos, True, 0, scale),
+        "plain": lambda q, k, v: _sdpa(q, k, v, bias, scale),
+        "library": lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2),
+    }
+    fwd, bwd = {}, {}
+    for name, core in cores.items():
+        with torch.no_grad():
+            fwd[name] = _event_ms(lambda: core(q, k, v))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = core(*leaves)
+        bwd[name] = _event_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+        del out, leaves
+
+    def grads(core, dtype):
+        """out, dq, dk, dv of ``core`` in ``dtype`` on the bf16 inputs, as f32."""
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        out = core(*leaves)
+        return [out.detach().float()] + [g.float() for g in torch.autograd.grad(
+            out, leaves, dout.to(dtype))]
+
+    # the card tests' rule (tests/test_torch_attention_kernel.py): against
+    # _sdpa in f32, the fused core's worst error within 1.25x bf16 _sdpa's
+    # plus half a bf16 ulp, its mean error within 1.1x, each relative to its
+    # own tensor's largest entry
+    ref = grads(cores["plain"], torch.float32)
+    errs = {}
+    for name in ("plain", "fused", "library"):
+        got = grads(cores[name], torch.bfloat16)
+        errs[name] = [(float((x - r).abs().max()), float((x - r).abs().mean()))
+                      for x, r in zip(got, ref)]
+        del got
+    tops = [float(r.abs().max()) for r in ref]
+    del ref
+    for i, what in enumerate(("out", "dq", "dk", "dv")):
+        (w_plain, m_plain), (w_fused, m_fused) = errs["plain"][i], errs["fused"][i]
+        w_lib = errs["library"][i][0]
+        say(f"  {what} against f32 _sdpa (max |{what}| {tops[i]:.4g}): worst |err| fused "
+            f"{w_fused:.4g}, bf16 _sdpa {w_plain:.4g}, library {w_lib:.4g}; mean |err| fused "
+            f"{m_fused:.4g}, bf16 _sdpa {m_plain:.4g}")
+        check(math.isfinite(w_fused) and w_fused / tops[i] <= 1.25 * w_plain / tops[i] + 2.0 ** -8,
+              f"fused attention {what}: worst |err| {w_fused} against bf16 _sdpa's {w_plain}")
+        check(m_fused <= 1.1 * m_plain,
+              f"fused attention {what}: mean |err| {m_fused} against bf16 _sdpa's {m_plain}")
+    check(errs["library"][0][0] <= 2.0 ** -6 * tops[0],
+          "the library yardstick computes the plain core's function")
+    err = {"attn_fwd": errs["fused"][0][0], "attn_bwd": max(e for e, _ in errs["fused"][1:])}
+    # useful products: QK^T and PV over the causal pairs s (s + 1) / 2 in the
+    # forward; dP, dV, dQ and dK (twice the forward's) in the backward
+    useful = 2 * 2 * b * h * d * s * (s + 1) / 2
+    rows = {}
+    for kernel, ms, plain_ms, library_ms, flops in (
+            ("attn_fwd", fwd["fused"], fwd["plain"], fwd["library"], useful),
+            ("attn_bwd", bwd["fused"], bwd["plain"], bwd["library"], 2 * useful)):
+        bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+        say(f"  {kernel} {ATTN_SHAPE} causal bf16: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+            f"useful; bound {bound_ms:.4f} ms by bf16 products, {bound_ms / ms:.1%} of it); plain "
+            f"{plain_ms:.4f} ms; library {library_ms:.4f} ms")
+        rows[kernel] = {"name": f"{kernel} [{b}x{s}, {h}/{kh} heads of {d}, causal]",
+                        "route": "cuda", "source": "src/repro_torch/kernels/csrc/attention.cu",
+                        "replaces": "none (the plain core _sdpa; the reference's attention is jnp)",
+                        "launches": 0, "launches_by_path": {}, "max_abs_err": err[kernel],
+                        "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bf16 products", "library_ms": library_ms,
+                        "compile_s": compile_s}
+    return rows
 
 
 def _pct(values, q):
@@ -1453,7 +1575,8 @@ def phase10_serve(smi):
     from repro_torch.models import Model, forward
     from repro_torch.models.convert import tree_leaves
     from repro_torch.serve import generate_timed
-    from repro_torch.models.attention import CHUNKED_THRESHOLD
+    from repro_torch.kernels import _build
+    from repro_torch.models.attention import CHUNKED_THRESHOLD, _core_path
 
     say("== phase 10: LM forward passes and serve steps on the card")
     card, cpu = torch.device("cuda"), torch.device("cpu")
@@ -1500,7 +1623,13 @@ def phase10_serve(smi):
     model = Model(cfg, device=card, generator=torch.Generator(device=card).manual_seed(0))  # phase 9's tree
     results = {}
     for label, b, s, steps in SERVE_CASES:
-        check((s >= CHUNKED_THRESHOLD) == (label == "b"), f"case ({label}): only (b) is chunked")
+        check((s >= CHUNKED_THRESHOLD) == (label == "b"),
+              f"case ({label}): only (b) reaches CHUNKED_THRESHOLD")
+        q = torch.empty(b, s, cfg.n_heads, cfg.head_dim_, dtype=torch.bfloat16, device=card)
+        kv = torch.empty(b, s, cfg.n_kv_heads, cfg.head_dim_, dtype=torch.bfloat16, device=card)
+        check(_core_path(q, kv, kv, "auto") == "fused",
+              f"case ({label}): the fused core takes the prefill")
+        del q, kv
         batch = prompt_batch(cfg, b, s, 0, card)
         cold = generate_timed(model, cfg, batch, steps, device=card)
         cold = (cold["prefill_s"], statistics.median(cold["decode_s"]))
@@ -1557,7 +1686,29 @@ def phase10_serve(smi):
                           "tok_s": tps, "peak_B": peak, "agree": agree,
                           "tokens": r["tokens"].cpu()}
         del r, ref, seq
-    del model
+
+    # the chunked core at full width in bf16, which "auto" keeps for what the
+    # fused core does not take at CHUNKED_THRESHOLD tokens or more (MLA, f32
+    # models): case (b)'s prompt through impl="chunked", held against the
+    # fused core's forward
+    with torch.inference_mode():
+        fused_logits, _, _ = forward(model, cfg, {"tokens": batch["tokens"]})
+        torch.cuda.synchronize()
+        before = _build.LAUNCHES["attn_fwd"]
+        chunked_logits, _, _ = forward(model, cfg, {"tokens": batch["tokens"]}, impl="chunked")
+        torch.cuda.synchronize()
+    check(_build.LAUNCHES["attn_fwd"] == before, "impl='chunked' launched the fused attention")
+    scale = float(fused_logits.float().abs().max())
+    err = float((chunked_logits.float() - fused_logits.float()).abs().max())
+    agree = float((chunked_logits.argmax(dim=-1) == fused_logits.argmax(dim=-1)).float().mean())
+    say(f"  forward impl='chunked' vs the fused core, llama3-8b {cfg.dtype} at full width, "
+        f"{tuple(batch['tokens'].shape)} tokens (8 Q and 8 KV blocks of 1024): logits max |err| "
+        f"{err:.4f} ({100 * err / scale:.2f}% of max |logit| {scale:.4f}); argmax agreement "
+        f"{100 * agree:.2f}%")
+    check(bool(torch.isfinite(chunked_logits).all()), "chunked forward at 8192: finite logits")
+    check(err <= LOGIT_RTOL * scale, f"chunked forward at 8192: max |err| {err} beyond "
+          f"{LOGIT_RTOL} x {scale}")
+    del model, fused_logits, chunked_logits, batch
     torch.cuda.empty_cache()
 
     label, b, s, steps = SERVE_CASES[0]
@@ -2367,7 +2518,7 @@ def main() -> int:
     phase1_build()
     from repro_torch.kernels import _build
 
-    errs = {k: 0.0 for k in _build.LAUNCHES}
+    errs = {k: 0.0 for k in _build.STENCIL_LAUNCHES}
     phase2_compare(errs)
     torch.cuda.synchronize()
 
@@ -2380,11 +2531,24 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)  # the main path ends here
     say(f"main path launches: {launches}")
-    for kernel, n in launches.items():
-        check(n > 0, f"{kernel} was not launched on the main path")
+    for kernel in _build.STENCIL_LAUNCHES:
+        check(launches[kernel] > 0, f"{kernel} was not launched on the main path")
 
     kernels = phase6_times(launches, errs)
     torch.cuda.synchronize()
+    _build.reset_launches()
+    kernels.update(phase6_attention())
+    torch.cuda.synchronize()
+
+    def stencil_free(path, attention=()):
+        got = dict(_build.LAUNCHES)
+        say(f"{path} path launches: {got} (no stencil kernel lies on this path)")
+        check(not any(got[k] for k in _build.STENCIL_LAUNCHES),
+              f"a stencil kernel was launched on the {path} path")
+        for k in attention:
+            check(got[k] > 0, f"{k} was not launched on the {path} path")
+            kernels[k]["launches"] += got[k]
+            kernels[k]["launches_by_path"][path] = got[k]
 
     _build.reset_launches()  # the served path starts here
     build_s = phase7_served(analytic, smi)
@@ -2401,33 +2565,26 @@ def main() -> int:
     _build.reset_launches()  # the LM path starts here
     lm_s = phase9_lm(smi)
     torch.cuda.synchronize()
-    say(f"LM path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
-    check(not any(_build.LAUNCHES.values()), "a stencil kernel was launched on the LM path")
+    stencil_free("LM")
 
     _build.reset_launches()  # the serve path starts here
     serve = phase10_serve(smi)
     torch.cuda.synchronize()
-    say(f"serve path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
-    check(not any(_build.LAUNCHES.values()), "a stencil kernel was launched on the serve path")
+    stencil_free("serve", attention=("attn_fwd",))
 
     _build.reset_launches()  # the train path starts here
     train = phase11_train(smi)
     torch.cuda.synchronize()
-    say(f"train path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
-    check(not any(_build.LAUNCHES.values()), "a stencil kernel was launched on the train path")
+    stencil_free("train", attention=("attn_fwd", "attn_bwd"))
 
     _build.reset_launches()  # the multi-device path starts here
     multi = phase12_multi_device(smi, analytic, sweep_s, serve, train)
     torch.cuda.synchronize()
-    say(f"multi-device path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
-    check(not any(_build.LAUNCHES.values()),
-          "a stencil kernel was launched on the multi-device path")
+    stencil_free("multi-device", attention=("attn_fwd", "attn_bwd"))
     _build.reset_launches()  # the launch-analysis path starts here
     dry = phase13_dryrun(smi, serve, train)
     torch.cuda.synchronize()
-    say(f"launch-analysis path launches: {dict(_build.LAUNCHES)} (no kernel lies on this path)")
-    check(not any(_build.LAUNCHES.values()),
-          "a stencil kernel was launched on the launch-analysis path")
+    stencil_free("launch-analysis")
     say(f"seconds: sweep {sweep_s:.3f}, measure {measure_s:.2f}, fit {fit_s:.2f}, "
         f"calibrated codesign {cal_s:.3f}, served build {build_s:.3f}, gateway builds "
         + ", ".join(f"{g} {t:.3f}" for g, t in gateway_build_s.items())

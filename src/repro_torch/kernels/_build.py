@@ -2,15 +2,20 @@
 
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. The
-sources compile in parallel (one ``nvcc`` each, all started together) at
-first use, into ``build/repro_torch_kernels/<hash>/`` of the checkout; the
-hash covers the sources and the flags, so an edited source rebuilds and an
-unchanged one is reused. ``nvcc`` is found through ``CUDA_HOME``, then
-``PATH``, then ``/usr/local/cuda``; without it the build raises.
+libraries form two groups (:data:`GROUPS`), each with its own sources and
+flags, built at the first use of one of its libraries: the stencils'
+(``tiled``, ``step``; :data:`NVCC_FLAGS`) and attention's (``attention``;
+:data:`ATTENTION_FLAGS`), so a process that runs no attention never
+compiles or loads it. A group's sources compile in parallel (one ``nvcc``
+each, all started together) into ``build/repro_torch_kernels/<hash>/`` of
+the checkout; the hash covers the group's sources and flags, so an edited
+source rebuilds and an unchanged one is reused. ``nvcc`` is found through
+``CUDA_HOME``, then ``PATH``, then ``/usr/local/cuda``; without it the
+build raises.
 
-Every C entry point takes a stencil id and a dtype id and returns
-``cudaGetLastError()`` after its launch: :func:`check` raises when that is
-not 0. :data:`LAUNCHES` counts the launches each wrapper made.
+Every C entry point returns ``cudaGetLastError()`` after its launches:
+:func:`check` raises when that is not 0. :data:`LAUNCHES` counts the
+launches each wrapper made.
 """
 
 from __future__ import annotations
@@ -56,6 +61,23 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
+#: the attention library's flags: the stencils' but ``--fmad=false``, whose
+#: bit-identity rule is theirs; the kernels round where the plain core
+#: rounds, and contract the rest
+ATTENTION_FLAGS = tuple(f for f in NVCC_FLAGS if f != "--fmad=false")
+#: csrc/attention.cu's compilation units, compiled in parallel and linked
+#: into one library: its C entry points, then each head width's forward
+#: and backward kernels
+ATTENTION_UNITS = ((),) + tuple(
+    (f"-DATTN_HEAD_DIM={d}", f"-DATTN_BACKWARD={bwd}") for d in (64, 128) for bwd in (0, 1))
+#: group name -> ({library: its units}, headers, flags); a unit is a source
+#: and its extra flags. A library of one unit compiles straight into it; the
+#: units of a library of several compile into objects, linked after
+GROUPS = {
+    "stencils": ({Path(src).stem: ((src, ()),) for src in SOURCES}, HEADERS, NVCC_FLAGS),
+    "attention": ({"attention": tuple(("attention.cu", u) for u in ATTENTION_UNITS)}, (),
+                  ATTENTION_FLAGS),
+}
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 #: the StencilId enum of csrc/stencil_bodies.cuh
@@ -71,7 +93,10 @@ STENCIL_IDS: Dict[str, int] = {
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches per kernel wrapper, counted where the wrapper launches
-LAUNCHES: Dict[str, int] = {"tiled2d": 0, "tiled3d": 0, "step2d": 0, "step3d": 0}
+LAUNCHES: Dict[str, int] = {"tiled2d": 0, "tiled3d": 0, "step2d": 0, "step3d": 0,
+                            "attn_fwd": 0, "attn_bwd": 0}
+#: the stencil kernels' counters, which the LM paths leave at 0
+STENCIL_LAUNCHES = ("tiled2d", "tiled3d", "step2d", "step3d")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRY_POINTS = {
@@ -88,6 +113,11 @@ _ENTRY_POINTS = {
         "repro_step2d": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
         # x, out, dtype, stencil, d, h, w, halo, block_rows, stream
         "repro_step3d": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "attention": {
+        # the address of an AttnParams, head width, stream
+        "repro_attn_fwd": [_P, _I, _P],
+        "repro_attn_bwd": [_P, _I, _P],
     },
 }
 
@@ -119,53 +149,74 @@ def find_nvcc() -> str:
     )
 
 
-def _build_dir() -> Path:
+def _build_dir(group: str) -> Path:
+    libs, headers, flags = GROUPS[group]
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in sorted({src for units in libs.values() for src, _ in units}) + list(headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
+    h.update(repr(sorted(libs.items())).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Dict[str, dict]:
-    """Compile every source whose library is missing, all in parallel.
+def _group_of(stem: str) -> str:
+    return next(g for g, (libs, _, _) in GROUPS.items() if stem in libs)
 
-    Returns ``{stem: {"path", "seconds", "log"}}`` per source; ``log`` is
+
+def _run(cmds):
+    """Run ``cmds`` in parallel; returns (return code, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def build(group: str = "stencils") -> Dict[str, dict]:
+    """Compile every library of ``group`` (:data:`GROUPS`) that is missing:
+    all their units in parallel, then link the libraries of several units.
+
+    Returns ``{stem: {"path", "seconds", "log"}}`` per library; ``log`` is
     nvcc's output (the ``-Xptxas -v`` registers, shared memory and spills
-    per kernel) for a source built now, else ``""``. Raises on any failure.
+    per kernel) for a library built now, else ``""``. Raises on any failure.
     """
-    out_dir = _build_dir()
+    libs, _, flags = GROUPS[group]
+    out_dir = _build_dir(group)
     out_dir.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
-    procs = {}
-    for src in SOURCES:
-        stem = Path(src).stem
+    nvcc, pid, t0 = None, os.getpid(), time.perf_counter()
+    compiles, links, done = [], [], []  # (stem, command); (stem, command); (tmp, lib, stem)
+    for stem, units in libs.items():
         lib = out_dir / f"lib{stem}.so"
         report[stem] = {"path": str(lib), "seconds": 0.0, "log": ""}
         if lib.exists():
             continue
-        tmp = out_dir / f".lib{stem}.{os.getpid()}.so"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[stem] = (
-            subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ),
-            tmp,
-            lib,
-            time.perf_counter(),
-        )
+        nvcc = nvcc or find_nvcc()
+        tmp = out_dir / f".lib{stem}.{pid}.so"
+        if len(units) == 1:
+            src, extra = units[0]
+            compiles.append((stem, [nvcc, *flags, *extra, "-o", str(tmp), str(CSRC / src)]))
+            done.append((tmp, lib, stem))
+            continue
+        objs = [out_dir / f".{stem}.{i}.{pid}.o" for i in range(len(units))]
+        unit_flags = [f for f in flags if f != "-shared"]
+        compiles += [(stem, [nvcc, *unit_flags, *extra, "-c", "-o", str(o), str(CSRC / src)])
+                     for (src, extra), o in zip(units, objs)]
+        links.append((stem, [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]))
+        done.append((tmp, lib, stem))
     failed = []
-    for stem, (proc, tmp, lib, t0) in procs.items():
-        log, _ = proc.communicate()
+    for step in (compiles, links):
+        for (stem, cmd), (rc, log) in zip(step, _run([c for _, c in step])):
+            report[stem]["log"] += log
+            if rc != 0:
+                failed.append(f"{stem}: exited {rc}: {' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    for tmp, lib, stem in done:
+        os.replace(tmp, lib)
         report[stem]["seconds"] = time.perf_counter() - t0
-        report[stem]["log"] = log
-        if proc.returncode != 0:
-            failed.append(f"{stem}: nvcc exited {proc.returncode}\n{log}")
-        else:
-            os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    for obj in out_dir.glob(f".*.{pid}.o"):
+        obj.unlink()
     return report
 
 
@@ -174,7 +225,7 @@ def library(stem: str) -> ctypes.CDLL:
     with ``argtypes``/``restype`` set on every entry point."""
     lib = _LIBS.get(stem)
     if lib is None:
-        path = build()[stem]["path"]
+        path = build(_group_of(stem))[stem]["path"]
         lib = ctypes.CDLL(path)
         for fn, argtypes in _ENTRY_POINTS[stem].items():
             getattr(lib, fn).argtypes = argtypes

@@ -17,11 +17,27 @@ updated in place (slots by ``index_copy_``, ``idx`` by ``add_``) and the
 same dict is returned. Slots are computed on the device from ``idx``, so a
 decode step reads no cache index back to the host.
 
-Long sequences use a chunked online softmax (a loop over KV blocks inside
-a loop over Q blocks, the reference's ``lax.scan`` inside ``lax.map``) so
-activation memory is O(S * block), not O(S^2). The plain path writes its
-softmax out, as the reference does; it is not
-``F.scaled_dot_product_attention``.
+Three cores compute the attention itself (``_attend``, under the layer
+span ``model.attention.core`` with the path taken):
+
+* **fused** -- the hand-written CUDA kernels of
+  :mod:`repro_torch.kernels.attention` (forward and backward), which
+  write no score out. Under ``impl="auto"`` it runs wherever its
+  predicate takes the input: bf16 CUDA tensors, more than one query
+  (training, prefill, encoders), head widths 64 or 128. It is chosen on
+  each rank's own tensors, so training and prefill on the card take it,
+  on a mesh too.
+* **plain** -- ``_sdpa``, which writes its softmax out, as the reference
+  does: CPU tensors (so every CPU parity test holds it to the reference),
+  a mesh's split of a cache's head dims, fake tensors (the launch
+  analysis's traces), decode (one query), MLA's 192/128 heads, f32
+  models, and ``impl="plain"``.
+* **chunked** -- an online softmax over KV blocks inside a loop over Q
+  blocks (the reference's ``lax.scan`` inside ``lax.map``), O(S * block)
+  activation memory: ``impl="chunked"``, and under ``"auto"`` what the
+  fused core does not take at ``CHUNKED_THRESHOLD`` tokens or more.
+
+None of them is ``F.scaled_dot_product_attention``.
 """
 
 from __future__ import annotations
@@ -34,6 +50,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
+from ..kernels import attention as fused
+from ..obs.trace import layer_span
 from ..sharding.dtensor import (
     local_heads,
     shard_like,
@@ -165,20 +183,42 @@ def _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale):
     return out.to(v.dtype)
 
 
+def _core_path(q, k, v, impl: str, groups=()) -> str:
+    """Which core ``_attend`` runs: ``"fused"``, ``"chunked"`` or
+    ``"plain"``, from ``impl``, the inputs' types, devices and shapes, and
+    whether they are a split of the head dims (``groups``)."""
+    if impl == "auto" and not groups and fused.takes(q, k, v):
+        return "fused"
+    long_seq = max(q.shape[1], k.shape[1]) >= CHUNKED_THRESHOLD
+    if impl == "chunked" or (impl == "auto" and long_seq and q.shape[1] > 1):
+        return "chunked"
+    return "plain"
+
+
+#: the ``model.attention.core`` span's attributes, one dict per path
+_CORE_ATTRS = {path: {"path": path} for path in ("fused", "chunked", "plain")}
+
+
 def _attend(q, k, v, q_pos, k_pos, mode, window, impl):
     scale = 1.0 / math.sqrt(q.shape[-1])
-    long_seq = max(q.shape[1], k.shape[1]) >= CHUNKED_THRESHOLD
-    chunked = impl == "chunked" or (impl == "auto" and long_seq and q.shape[1] > 1)
 
     def core(q, k, v, q_pos, k_pos, groups):
-        if chunked:
-            return _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale)
-        return _sdpa(q, k, v, _mask_bias(q_pos, k_pos, mode, window), scale, groups)
+        path = _core_path(q, k, v, impl, groups)
+        with layer_span("model.attention.core", attrs=_CORE_ATTRS[path]):
+            if path == "fused":
+                return fused.fused_attention(q, k, v, q_pos, k_pos, mode == "causal", window,
+                                             scale)
+            if path == "chunked":
+                return _sdpa_chunked(q, k, v, q_pos, k_pos, mode, window, scale)
+            return _sdpa(q, k, v, _mask_bias(q_pos, k_pos, mode, window), scale, groups)
 
     # on a mesh the core runs on each rank's batch rows and its own q heads
     # (or its slice of a cache's head dims): its einsums flatten batch and
     # head dims together, which DTensor (torch 2.11) cannot do when both
-    # are sharded, and GQA's kv heads may be fewer than the model ranks
+    # are sharded, and GQA's kv heads may be fewer than the model ranks. The
+    # core is chosen there, on the rank's own tensors, so a mesh takes the
+    # fused kernels wherever it does not split the head dims
+    chunked = _core_path(q, k, v, impl) == "chunked"
     return local_heads(core, q, k, v, (q_pos, k_pos), dims_ok=not chunked)
 
 

@@ -24,19 +24,23 @@ wait, not the matmul. Trace ids ride the HTTP wire as the
 :data:`TRACE_HEADER` header (client-supplied or gateway-minted).
 
 *Layer spans* (:func:`layer_span`) are the second kind: records of where
-a train or serve step spends its time. The program opens five:
+a train or serve step spends its time. The program opens six:
 
-=================== ==================================================== ===========
-span                where                                                device time
-=================== ==================================================== ===========
-``serve.decode``    each decode step of ``serve.generate_timed``, its    no
-                    synchronise inside
-``train.step``      the whole train step                                 yes
-``train.forward``   each microbatch's forward pass and loss              yes
-``train.recompute`` each recompute of a checkpointed block, sub-layer or yes
-                    loss chunk, in the backward pass (:func:`checkpointed`)
-``model.attention`` a mixer's attention                                  with grad
-=================== ==================================================== ===========
+========================== ============================================= ===========
+span                       where                                         device time
+========================== ============================================= ===========
+``serve.decode``           each decode step of ``serve.generate_timed``, no
+                           its synchronise inside
+``train.step``             the whole train step                          yes
+``train.forward``          each microbatch's forward pass and loss       yes
+``train.recompute``        each recompute of a checkpointed block,       yes
+                           sub-layer or loss chunk, in the backward pass
+                           (:func:`checkpointed`)
+``model.attention``        a mixer's attention                           with grad
+``model.attention.core``   the attention core inside it (``_attend``),   no
+                           ``attrs`` ``{"path": "fused" | "plain" |
+                           "chunked"}``
+========================== ============================================= ===========
 
 * **When they record.** Only while a ``torch.profiler`` session records
   (the flag ``torch.autograd.profiler`` keeps). Otherwise a span site is

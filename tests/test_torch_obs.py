@@ -568,6 +568,7 @@ def test_train_step_layer_spans_nest_and_change_no_number(remat):
         ("train.step", None): 1,
         ("train.forward", "train.step"): 2,
         ("model.attention", "train.forward"): n_blocks,
+        ("model.attention.core", "model.attention"): n_blocks * (1 if remat == "none" else 2),
         **({("train.recompute", "train.step"): recompute[remat],
             ("model.attention", "train.recompute"): n_blocks} if remat != "none" else {}),
     })
@@ -609,10 +610,13 @@ def test_generate_timed_records_one_decode_span_per_step():
     tokens, spans, _ = _profiled(_serve, on=True)
     assert torch.equal(tokens, plain)
     names = collections.Counter((s["name"], _named(spans, i)) for i, s in enumerate(spans))
-    # the prefill's attention has no parent span; each of 3 decode steps holds its layers'
+    # the prefill's attention has no parent span; each of 3 decode steps holds its layers';
+    # every attention holds its core
     assert names == collections.Counter({("serve.decode", None): 3,
                                          ("model.attention", None): _TINY.n_layers,
-                                         ("model.attention", "serve.decode"): 3 * _TINY.n_layers})
+                                         ("model.attention", "serve.decode"): 3 * _TINY.n_layers,
+                                         ("model.attention.core", "model.attention"):
+                                             4 * _TINY.n_layers})
 
 
 def test_an_op_inside_a_span_lies_inside_it_on_the_profilers_clock():
